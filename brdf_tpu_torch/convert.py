@@ -1,0 +1,63 @@
+"""Carry state between the JAX package and the port.
+
+The system has no network weights. Its state is the problem arrays
+(``TexelProblem`` and its ``ShadingAngles``/``ShadingGeometry``), parameter
+starts ``p0``, the warm ``(μ, ν, stop)`` resume state, fit results
+(``LMResult``/``VarProResult``) and the box (plain float tuples, which need
+no conversion).
+
+:func:`from_numpy` takes any of these as numpy arrays — or as an object of
+the JAX package's type with the same name, whose leaves ``np.asarray``
+reads — and returns the port's type with tensors on ``device``.
+:func:`to_numpy` returns the same port type with numpy leaves; the JAX
+types take those as ``JaxType(**x._asdict())``. dtypes are kept as they
+are. ``TexelProblem``'s host metadata (``face_ids``, ``pixels``, ``points``,
+``normals``) stays numpy in both packages.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from brdf_tpu_torch.models.brdf import ShadingAngles, ShadingGeometry
+from brdf_tpu_torch.solver.varpro import VarProResult
+from brdf_tpu_torch.pipeline.fit import TexelProblem
+from brdf_tpu_torch.solver.lm import LMResult
+
+_TYPES = {cls.__name__: cls for cls in
+          (ShadingAngles, ShadingGeometry, TexelProblem, LMResult, VarProResult)}
+_HOST_FIELDS = {"face_ids", "pixels", "points", "normals"}
+
+
+def from_numpy(obj, device="cpu"):
+    """numpy (or JAX-package) state → the port's types on ``device``."""
+    if obj is None:
+        return None
+    name = type(obj).__name__
+    if hasattr(obj, "_fields"):
+        if name not in _TYPES:
+            raise TypeError(f"no port type for {name}")
+        fields = obj._asdict()
+        return _TYPES[name](**{
+            k: (None if v is None else np.asarray(v)) if k in _HOST_FIELDS
+            else from_numpy(v, device)
+            for k, v in fields.items() if k in _TYPES[name]._fields
+        })
+    if isinstance(obj, (tuple, list)):
+        return tuple(from_numpy(x, device) for x in obj)
+    return torch.as_tensor(np.array(obj), device=device)
+
+
+def to_numpy(obj):
+    """The port's state → the same types with numpy leaves (tuples for the
+    warm state)."""
+    if obj is None:
+        return None
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if hasattr(obj, "_fields"):
+        return type(obj)(*(to_numpy(x) for x in obj))
+    if isinstance(obj, (tuple, list)):
+        return tuple(to_numpy(x) for x in obj)
+    return obj

@@ -1,0 +1,100 @@
+"""Build the port's CUDA sources into shared libraries and load them.
+
+Each ``csrc/<name>.cu`` becomes ``build/torch_kernels/lib<name>.so`` under
+the repository root, compiled at first use by ``nvcc`` for ``sm_90a``
+(Hopper) with a plain C interface and loaded with :mod:`ctypes`. That takes
+seconds, where a build against PyTorch's headers takes minutes. A library
+is rebuilt when any ``csrc`` source is newer than it. :func:`build_all`
+starts one ``nvcc`` per source, all at once.
+
+Nothing here runs at import time: this module is imported on machines that
+have no ``nvcc`` and no GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # no FMA contraction: every a*b+c rounds twice, as the plain PyTorch
+    # versions' separate kernels do (csrc/lobes.cuh says why that matters)
+    "-fmad=false",
+]
+SOURCES = ("varpro",)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_nvcc = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cuda_nvcc.exists():
+        return str(cuda_nvcc)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = library_path(name)
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+    return lib.stat().st_mtime < newest
+
+
+def _start(name: str) -> tuple[subprocess.Popen, str]:
+    """Start nvcc for one source into a temporary file beside the library
+    (renamed into place on success, so a reader never sees half a file)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=f"lib{name}.", suffix=".so.tmp", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp
+
+
+def _finish(name: str, proc: subprocess.Popen, tmp: str) -> None:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, library_path(name))
+
+
+def build(name: str) -> Path:
+    """Build ``csrc/<name>.cu`` if its library is missing or stale."""
+    if _stale(name):
+        _finish(name, *_start(name))
+    return library_path(name)
+
+
+def build_all() -> list[Path]:
+    """Build every stale source, one ``nvcc`` process each, in parallel."""
+    started = {name: _start(name) for name in SOURCES if _stale(name)}
+    errors = []
+    for name, (proc, tmp) in started.items():
+        try:
+            _finish(name, proc, tmp)
+        except RuntimeError as exc:
+            errors.append(str(exc))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return [library_path(name) for name in SOURCES]
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    return ctypes.CDLL(str(build(name)))

@@ -1,0 +1,65 @@
+"""Synthetic inputs shared by the ``test_torch_*`` files.
+
+Everything is made with numpy from a seed and handed to both packages, so
+the JAX package and the PyTorch port see the same bits. The angle
+distribution is ``bench.py::make_problem``'s.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+SEPARABLE = ("blinn_phong", "phong", "cook_torrance", "ward")
+ALL_LOBES = (
+    "phong", "blinn_phong", "cook_torrance", "cook_torrance_fresnel", "lambert",
+    "oren_nayar", "ward", "minnaert", "ward_aniso", "cook_torrance_aniso",
+)
+TANGENT = ("cos_th", "cos_bh", "cos_tl", "cos_bl", "cos_tv", "cos_bv")
+
+
+def angle_columns(rng, t, v, dtype=np.float32, tangent=False) -> dict:
+    """(T, V) cosine channels as in ``bench.py::make_problem``; with
+    ``tangent`` also six tangent-frame channels drawn in [-1, 1]."""
+    cols = dict(
+        cos_ln=rng.uniform(0.0, 1.0, (t, v)),
+        cos_nh=rng.uniform(0.0, 1.0, (t, v)),
+        cos_rv=rng.uniform(-1.0, 1.0, (t, v)),
+        cos_vn=rng.uniform(0.1, 1.0, (t, v)),
+    )
+    if tangent:
+        cols.update({k: rng.uniform(-1.0, 1.0, (t, v)) for k in TANGENT})
+    return {k: x.astype(dtype) for k, x in cols.items()}
+
+
+def true_params(model, rng, t, dtype=np.float32) -> np.ndarray:
+    """Per-texel parameters inside each lobe's box (``tests/test_varpro.py``'s
+    distribution for the separable lobes)."""
+    kd = rng.uniform(0.1, 0.9, t)
+    ks = rng.uniform(0.2, 1.0, t)
+    cols = {
+        "phong": [kd, ks, rng.uniform(2.0, 30.0, t)],
+        "blinn_phong": [kd, ks, rng.uniform(2.0, 30.0, t)],
+        "cook_torrance": [kd, ks, rng.uniform(0.15, 0.9, t)],
+        "ward": [kd, ks, rng.uniform(0.15, 0.9, t)],
+        "cook_torrance_fresnel": [kd, ks, rng.uniform(0.15, 0.9, t), rng.uniform(0.2, 0.9, t)],
+        "lambert": [kd],
+        "oren_nayar": [kd, rng.uniform(0.05, 1.2, t)],
+        "minnaert": [kd, rng.uniform(0.4, 2.5, t)],
+        "ward_aniso": [kd, ks, rng.uniform(0.15, 0.9, t), rng.uniform(0.15, 0.9, t),
+                       rng.uniform(-1.2, 1.2, t)],
+        "cook_torrance_aniso": [kd, ks, rng.uniform(0.15, 0.9, t), rng.uniform(0.15, 0.9, t),
+                                rng.uniform(-1.2, 1.2, t)],
+    }[model]
+    return np.stack(cols, -1).astype(dtype)
+
+
+def recovery(p, true_p) -> float:
+    rel = (np.abs(np.asarray(p) - true_p) / np.maximum(np.abs(true_p), 1e-3)).max(-1)
+    return float((rel < 1e-2).mean())
+
+
+def agreement(p, ref, rtol) -> float:
+    """Share of lanes whose every parameter is within ``rtol`` of ``ref``
+    (relative, with a 1e-3 floor on |ref|)."""
+    rel = np.abs(np.asarray(p) - np.asarray(ref)) / np.maximum(np.abs(np.asarray(ref)), 1e-3)
+    return float((rel.max(-1) < rtol).mean())
