@@ -1,10 +1,11 @@
 """Carry state between the JAX package and the port.
 
 The system has no network weights. Its state is the problem arrays
-(``TexelProblem`` and its ``ShadingAngles``/``ShadingGeometry``), parameter
-starts ``p0``, the warm ``(μ, ν, stop)`` resume state, fit results
-(``LMResult``/``VarProResult``) and the box (plain float tuples, which need
-no conversion).
+(``TexelProblem`` and its ``ShadingAngles``/``ShadingGeometry``, with all ten
+angle channels when the tangent-frame ones are filled), parameter starts
+``p0``, the warm ``(μ, ν, stop)`` resume state, fit results
+(``LMResult``/``PallasFitResult``/``VarProResult``) and the box (plain float
+tuples, which need no conversion).
 
 :func:`from_numpy` takes any of these as numpy arrays — or as an object of
 the JAX package's type with the same name, whose leaves ``np.asarray``
@@ -21,12 +22,13 @@ import numpy as np
 import torch
 
 from brdf_tpu_torch.models.brdf import ShadingAngles, ShadingGeometry
-from brdf_tpu_torch.solver.varpro import VarProResult
+from brdf_tpu_torch.ops.lm import PallasFitResult
 from brdf_tpu_torch.pipeline.fit import TexelProblem
 from brdf_tpu_torch.solver.lm import LMResult
+from brdf_tpu_torch.solver.varpro import VarProResult
 
 _TYPES = {cls.__name__: cls for cls in
-          (ShadingAngles, ShadingGeometry, TexelProblem, LMResult, VarProResult)}
+          (ShadingAngles, ShadingGeometry, TexelProblem, LMResult, PallasFitResult, VarProResult)}
 _HOST_FIELDS = {"face_ids", "pixels", "points", "normals"}
 
 
@@ -47,6 +49,15 @@ def from_numpy(obj, device="cpu"):
     if isinstance(obj, (tuple, list)):
         return tuple(from_numpy(x, device) for x in obj)
     return torch.as_tensor(np.array(obj), device=device)
+
+
+def warm_from_numpy(warm, device="cpu"):
+    """A ``(μ, ν, stop)`` triple from either package (``LMResult.warm_state()``,
+    or the μ, ν, stop fields of a fused-tier result) → the port's triple on
+    ``device``: μ and ν in their dtype, stop as int32."""
+    mu, nu, stop = (np.array(x) for x in warm)
+    return (torch.as_tensor(mu, device=device), torch.as_tensor(nu, device=device),
+            torch.as_tensor(stop.astype(np.int32), device=device))
 
 
 def to_numpy(obj):

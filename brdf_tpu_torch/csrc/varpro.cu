@@ -101,7 +101,7 @@ varpro_kernel(const float* __restrict__ ang,   // (A, V, T)
               const float* __restrict__ sig0,  // (T,) caller σ start, or null
               float* __restrict__ out,         // (8, T)
               int T, int V, GridArgs grid, SolveArgs s) {
-  constexpr int A = brdf::LobeAngles<L>::n;
+  constexpr int A = brdf::LobeTraits<L>::n_angles;
   extern __shared__ float smem[];
   const int tb = blockDim.x;
   const int tid = threadIdx.x;
@@ -177,7 +177,7 @@ varpro_kernel(const float* __restrict__ ang,   // (A, V, T)
     for (int v = 0; v < V; ++v) {
       load_angles(v);
       const int sv = v * tb + tid;
-      const brdf::LobeOut o = brdf::lobe_full<L>(av, 0.0f, 1.0f, sig);
+      const brdf::LobeOut<L> o = brdf::lobe_full<L>(av, 0.0f, 1.0f, sig);
       const float db_t = s.use_log ? o.dp[2] * sig : o.dp[2];
       const float wv = s_w[sv];
       const float aw = s_aw[sv];
@@ -244,7 +244,7 @@ template <int L>
 int launch(const float* ang, const float* y, const float* w, const float* sig0, float* out,
            int T, int V, int block_t, int smem_bytes, const GridArgs& grid,
            const SolveArgs& s, cudaStream_t stream) {
-  constexpr int A = brdf::LobeAngles<L>::n;
+  constexpr int A = brdf::LobeTraits<L>::n_angles;
   if (smem_bytes != (A + 5) * V * block_t * static_cast<int>(sizeof(float)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(

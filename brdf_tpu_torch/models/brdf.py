@@ -22,11 +22,6 @@ import torch
 
 _EPS = 1e-12
 
-_TANGENT_ITEM = (
-    "tangent-frame angles need models/normalmap.py::tangent_basis, which the "
-    "port brings with ROADMAP.md Queue A item 8 (joint normal-map tier)"
-)
-
 
 class ShadingGeometry(NamedTuple):
     """Unit vectors per (texel, light): ``n`` (..., 3), ``l``/``v`` (..., V, 3)."""
@@ -38,7 +33,9 @@ class ShadingGeometry(NamedTuple):
 
 class ShadingAngles(NamedTuple):
     """Cosine terms per (texel, light); all (..., V). The six tangent-frame
-    channels are ``None`` unless filled by the caller (anisotropic lobes)."""
+    channels are ``None`` unless the angles were built with
+    ``tangent_frame=True`` (the anisotropic lobes read them); the frame is
+    :func:`brdf_tpu_torch.models.normalmap.tangent_basis`'s."""
 
     cos_ln: torch.Tensor  # N·L
     cos_nh: torch.Tensor  # N·H
@@ -80,8 +77,6 @@ def shading_geometry(points, normals, eye, lights) -> ShadingGeometry:
 
 
 def angles_from_geometry(geom: ShadingGeometry, tangent_frame: bool = False) -> ShadingAngles:
-    if tangent_frame:
-        raise NotImplementedError(_TANGENT_ITEM)
     n = geom.n[..., None, :]
     cos_ln = torch.sum(n * geom.l, dim=-1)
     h = _normalize(geom.l + geom.v)
@@ -89,7 +84,19 @@ def angles_from_geometry(geom: ShadingGeometry, tangent_frame: bool = False) -> 
     r = 2.0 * cos_ln[..., None] * n - geom.l
     cos_rv = torch.sum(r * geom.v, dim=-1)
     cos_vn = torch.sum(n * geom.v, dim=-1)
-    return ShadingAngles(cos_ln=cos_ln, cos_nh=cos_nh, cos_rv=cos_rv, cos_vn=cos_vn)
+    ext = {}
+    if tangent_frame:
+        from brdf_tpu_torch.models.normalmap import tangent_basis
+
+        t, b = tangent_basis(geom.n)
+        t = t[..., None, :]
+        b = b[..., None, :]
+        ext = dict(
+            cos_th=torch.sum(t * h, dim=-1), cos_bh=torch.sum(b * h, dim=-1),
+            cos_tl=torch.sum(t * geom.l, dim=-1), cos_bl=torch.sum(b * geom.l, dim=-1),
+            cos_tv=torch.sum(t * geom.v, dim=-1), cos_bv=torch.sum(b * geom.v, dim=-1),
+        )
+    return ShadingAngles(cos_ln=cos_ln, cos_nh=cos_nh, cos_rv=cos_rv, cos_vn=cos_vn, **ext)
 
 
 def shading_angles(points, normals, eye, lights, tangent_frame: bool = False) -> ShadingAngles:
@@ -123,8 +130,6 @@ def angles_from_geometry_np(
     geom: ShadingGeometry, tangent_frame: bool = False, dtype=np.float32
 ) -> ShadingAngles:
     """Numpy twin of :func:`angles_from_geometry`; returns numpy channels."""
-    if tangent_frame:
-        raise NotImplementedError(_TANGENT_ITEM)
     n = np.asarray(geom.n, np.float64)[..., None, :]
     l = np.asarray(geom.l, np.float64)
     v = np.asarray(geom.v, np.float64)
@@ -135,9 +140,24 @@ def angles_from_geometry_np(
     r = 2.0 * cos_ln[..., None] * n - l
     cos_rv = np.sum(r * v, axis=-1)
     cos_vn = np.sum(n * v, axis=-1)
+    ext = {}
+    if tangent_frame:
+        from brdf_tpu_torch.models.normalmap import tangent_basis_np
+
+        t, b = tangent_basis_np(np.asarray(geom.n, np.float64))
+        t = t[..., None, :]
+        b = b[..., None, :]
+        ext = dict(
+            cos_th=np.sum(t * h, -1).astype(dtype),
+            cos_bh=np.sum(b * h, -1).astype(dtype),
+            cos_tl=np.sum(t * l, -1).astype(dtype),
+            cos_bl=np.sum(b * l, -1).astype(dtype),
+            cos_tv=np.sum(t * v, -1).astype(dtype),
+            cos_bv=np.sum(b * v, -1).astype(dtype),
+        )
     return ShadingAngles(
         cos_ln=cos_ln.astype(dtype), cos_nh=cos_nh.astype(dtype),
-        cos_rv=cos_rv.astype(dtype), cos_vn=cos_vn.astype(dtype),
+        cos_rv=cos_rv.astype(dtype), cos_vn=cos_vn.astype(dtype), **ext,
     )
 
 

@@ -5,7 +5,9 @@ the repository root, compiled at first use by ``nvcc`` for ``sm_90a``
 (Hopper) with a plain C interface and loaded with :mod:`ctypes`. That takes
 seconds, where a build against PyTorch's headers takes minutes. A library
 is rebuilt when any ``csrc`` source is newer than it. :func:`build_all`
-starts one ``nvcc`` per source, all at once.
+starts one ``nvcc`` per source, all at once. Every build runs with
+``-Xptxas -v``; what the assembler said of each kernel (registers, spills)
+is kept in :data:`BUILD_LOGS` and read with :func:`ptxas_report`.
 
 Nothing here runs at import time: this module is imported on machines that
 have no ``nvcc`` and no GPU.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -29,8 +32,12 @@ NVCC_FLAGS = [
     # no FMA contraction: every a*b+c rounds twice, as the plain PyTorch
     # versions' separate kernels do (csrc/lobes.cuh says why that matters)
     "-fmad=false",
+    # the assembler's per-kernel report (registers, spills) goes to the log
+    "-Xptxas", "-v",
 ]
-SOURCES = ("varpro",)
+SOURCES = ("varpro", "lm", "lobes_eval")
+# nvcc's output for each source built by this process
+BUILD_LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -70,7 +77,33 @@ def _finish(name: str, proc: subprocess.Popen, tmp: str) -> None:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    BUILD_LOGS[name] = log
     os.replace(tmp, library_path(name))
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """``-Xptxas -v`` output → one entry per kernel: its mangled name,
+    registers a thread, stack frame and spill bytes."""
+    out = []
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = dict(entry=m.group(1), registers=None, stack_bytes=0,
+                         spill_store_bytes=0, spill_load_bytes=0)
+            out.append(entry)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entry["stack_bytes"], entry["spill_store_bytes"], entry["spill_load_bytes"] = (
+                int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    return out
 
 
 def build(name: str) -> Path:

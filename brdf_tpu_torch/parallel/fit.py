@@ -3,10 +3,22 @@
 Single-device counterpart of ``brdf_tpu/parallel/fit.py``'s
 ``fit_texels_sharded`` and ``_fit_pipeline_program``. The JAX package
 traces the whole pipeline into one program over a device mesh; here
-PyTorch runs it eagerly on one device, and the fused VarPro kernel is the
-only device work of any weight. The ``warm_state`` argument (the LM
-engines' damping state, which VarPro ignores) comes with the LM slice, and
-multi-GPU sharding after the front end (ROADMAP.md Queue A items 4 and 5).
+PyTorch runs it eagerly on one device, and the fused kernels (K5 for the LM
+engines, K1 for VarPro) are the only device work of any weight.
+
+Engines, under the JAX package's names so that its presets carry over:
+
+- ``"pallas"`` — the hand-written fused LM tier, ``ops/lm.py`` (kernel K5,
+  ``csrc/lm.cu``, on CUDA; its plain version on the CPU, as the JAX package
+  runs its kernel in interpret mode there). Any of the ten lobes.
+- ``"xla"`` — the eager PyTorch tier, ``solver/lm.py::levmar_bc``. Any lobe.
+- ``"varpro"`` — the fused VarPro tier, ``ops/varpro.py`` (kernel K1), for
+  the four separable lobes.
+- ``"auto"`` — ``"pallas"`` on a CUDA device, ``"xla"`` on the CPU.
+
+Not ported yet: the chunked view tier for view counts the fused LM kernel
+cannot hold (ROADMAP.md Queue B item 5, kernel K6) and multi-GPU sharding
+(Queue A item 5, after the front end).
 """
 
 from __future__ import annotations
@@ -16,11 +28,14 @@ import torch
 
 from brdf_tpu_torch.device import resolve_device
 from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles
+from brdf_tpu_torch.ops.lm import PALLAS_MODELS, lm_fit_fused
 from brdf_tpu_torch.ops.varpro import varpro_fit_fused
-from brdf_tpu_torch.solver.lm import LMOptions, LMResult
+from brdf_tpu_torch.solver.init import linear_grid_init
+from brdf_tpu_torch.solver.lm import LMOptions, LMResult, levmar_bc
 from brdf_tpu_torch.solver.robust import robust_weights
 from brdf_tpu_torch.solver.varpro import _SEPARABLE
 
+ENGINES = ("auto", "pallas", "xla", "varpro")
 # the VarPro branches for m ≥ 4 lobes (parallel/fit.py:81-123) wait for the
 # ports of varpro_fit_fresnel_lin, varpro_fit_nd and kernel K8
 _VARPRO_LATER = {
@@ -28,14 +43,17 @@ _VARPRO_LATER = {
     "ward_aniso": "ROADMAP.md Queue A item 3 (varpro_fit_nd) and Queue B item 7 (kernel K8)",
     "cook_torrance_aniso": "ROADMAP.md Queue A item 3 (varpro_fit_nd) and Queue B item 7 (kernel K8)",
 }
-_ENGINES_LATER = {
-    "auto": "ROADMAP.md Queue B item 3 (fused LM kernel K5), which 'auto' picks on the GPU",
-    "pallas": "ROADMAP.md Queue B items 3 and 5 (fused LM kernel K5, chunked kernel K6)",
-    "xla": "ROADMAP.md Queue A item 4 (levmar_bc, the LM eager tier)",
-}
 
 
-def _fit_once(model, angles, target, weights, p0, k, lower, upper) -> LMResult:
+def _resolve_engine(engine: str, device_type: str, model: str) -> str:
+    """``"auto"`` keys off the device the fit runs on: the fused LM tier on
+    CUDA for a kernel lobe, the eager tier elsewhere."""
+    if engine != "auto":
+        return engine
+    return "pallas" if device_type == "cuda" and model in PALLAS_MODELS else "xla"
+
+
+def _fit_varpro(model, angles, target, weights, p0, k, lower, upper) -> LMResult:
     """One VarPro fit mapped onto the LM result: every iteration evaluates
     once whether accepted or not, so the work counters report the fixed
     schedule (k+1 evaluations, k closed-form solves)."""
@@ -49,6 +67,32 @@ def _fit_once(model, angles, target, weights, p0, k, lower, upper) -> LMResult:
     )
 
 
+def _fit_fused_lm(model, angles, target, weights, p0, warm, opts, lower, upper) -> LMResult:
+    """One fused LM fit (K5) mapped onto the LM result: an iteration is one
+    Jacobian pass, one solve and one trial evaluation."""
+    warm_f = (warm[0], warm[1], warm[2].to(torch.float32))
+    r = lm_fit_fused(model, angles, target, p0, weights=weights,
+                     opts=opts._replace(axis_name=None), lower=lower, upper=upper, warm=warm_f)
+    z = torch.zeros_like(r.chi2)
+    iters = r.iters.to(torch.int32)
+    return LMResult(
+        p=r.p, chi2=r.chi2, chi2_init=z, g_inf=r.g_inf, iters=iters, stop=r.stop,
+        nfev=(2.0 * r.iters + 1).to(torch.int32), njev=iters, mu=r.mu, nu=r.nu,
+        nlss=iters, constraint_violation=z,
+    )
+
+
+def _fit_eager_lm(model, angles, target, weights, p0, warm, opts, lower, upper) -> LMResult:
+    spec = MODELS[model]
+
+    def residual(p, data):
+        ang, y, w = data
+        return (spec.fn(p, ang) - y) * w
+
+    return levmar_bc(residual, p0, lower, upper, data=(angles, target, weights),
+                     opts=opts._replace(axis_name=None), warm_state=warm)
+
+
 def fit_texels(
     model: str,
     angles: ShadingAngles,
@@ -58,7 +102,8 @@ def fit_texels(
     weights: torch.Tensor | None = None,
     lower=None,
     upper=None,
-    engine: str = "varpro",
+    engine: str = "auto",
+    warm_state=None,
     robust: str | None = None,
     robust_iters: int = 0,
     device=None,
@@ -66,32 +111,38 @@ def fit_texels(
     """Fit per-texel BRDF parameters on one device.
 
     Args:
-      model: registered model name; ``engine="varpro"`` takes the four
-        separable lobes (blinn_phong, phong, cook_torrance, ward).
+      model: registered model name.
       angles/target: (T, V) cosines and measured intensities.
       opts: solver options; the VarPro step count is ``min(opts.itmax, 16)``.
-      p0: optional (T, m) start. Without one, every round (the first and
-        each IRLS round) re-runs the fused solve's in-kernel grid init under
-        that round's weights; with one, round 0 starts from it and round
-        ``i > 0`` from round ``i − 1``'s parameters.
+      p0: optional (T, m) start. The LM engines run the linear grid init
+        once, before round 0, when there is none. The VarPro engine instead
+        re-runs its in-kernel grid init in every round (the first and each
+        IRLS round) under that round's weights; with a start, round 0 begins
+        from it and round ``i > 0`` from round ``i − 1``'s parameters.
       weights: optional (T, V) residual weights (0 masks a measurement).
-      engine: "varpro" only in this port so far; the others raise
-        ``NotImplementedError`` naming the ROADMAP item that brings them.
+      engine: "auto" | "pallas" | "xla" | "varpro", see the module docstring.
+      warm_state: optional (μ, ν, stop) triple of (T,) tensors (e.g.
+        ``prev.warm_state()``) resuming a chunked fit with ``p0=prev.p``;
+        terminated lanes short-circuit. Carried by both LM engines, ignored
+        by VarPro (whose whole continuation state is the start).
       robust/robust_iters: IRLS rounds ("huber"/"cauchy"/"tukey"); round
-        ``i > 0`` uses ``robust_weights(fn(p_prev) − y, weights, kind)``.
-      device: where to run; ``cuda`` unless the caller passes another.
-        The fused kernel K1 runs on CUDA; on the CPU its plain version.
+        ``i > 0`` uses ``robust_weights(fn(p_prev) − y, weights, kind)``,
+        starts from round ``i − 1``'s parameters and from a cold damping
+        state.
+      device: where to run; ``cuda`` unless the caller passes another. The
+        fused kernels run on CUDA; on the CPU their plain versions.
     """
-    if engine != "varpro":
-        later = _ENGINES_LATER.get(engine, "unknown engine")
-        raise NotImplementedError(f"engine={engine!r} is not ported yet: {later}")
-    if model in _VARPRO_LATER:
-        raise NotImplementedError(
-            f"the varpro engine for {model!r} is not ported yet: {_VARPRO_LATER[model]}")
-    if model not in _SEPARABLE:
-        raise ValueError(
-            f"varpro_fit supports separable m=3 lobes {sorted(_SEPARABLE)}, got {model!r}")
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
     dev = resolve_device(device)
+    engine = _resolve_engine(engine, dev.type, model)
+    if engine == "varpro":
+        if model in _VARPRO_LATER:
+            raise NotImplementedError(
+                f"the varpro engine for {model!r} is not ported yet: {_VARPRO_LATER[model]}")
+        if model not in _SEPARABLE:
+            raise ValueError(
+                f"varpro_fit supports separable m=3 lobes {sorted(_SEPARABLE)}, got {model!r}")
     spec = MODELS[model]
     if opts is None:
         opts = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=60)
@@ -102,13 +153,29 @@ def fit_texels(
     weights = torch.ones_like(target) if weights is None else weights.to(dev, target.dtype)
     if p0 is not None:
         p0 = p0.to(dev)
-    k = min(opts.itmax, 16)
 
-    res = _fit_once(model, angles, target, weights, p0, k, lower_t, upper_t)
-    if robust is None:
+    if engine == "varpro":
+        k = min(opts.itmax, 16)
+        res = _fit_varpro(model, angles, target, weights, p0, k, lower_t, upper_t)
+        for _ in range(robust_iters if robust is not None else 0):
+            w_irls = robust_weights(spec.fn(res.p, angles) - target, weights, kind=robust)
+            res = _fit_varpro(model, angles, target, w_irls, res.p if p0 is not None else None,
+                              k, lower_t, upper_t)
         return res
-    for _ in range(robust_iters):
+
+    fit = _fit_fused_lm if engine == "pallas" else _fit_eager_lm
+    t = target.shape[0]
+    warm0 = (
+        torch.zeros(t, dtype=target.dtype, device=dev),
+        torch.full((t,), 2.0, dtype=target.dtype, device=dev),
+        torch.zeros(t, dtype=torch.int32, device=dev),
+    )
+    warm = warm0 if warm_state is None else tuple(
+        torch.as_tensor(x).to(dev) for x in warm_state)
+    if p0 is None:
+        p0 = linear_grid_init(model, angles, target, weights=weights)
+    res = fit(model, angles, target, weights, p0, warm, opts, lower_t, upper_t)
+    for _ in range(robust_iters if robust is not None else 0):
         w_irls = robust_weights(spec.fn(res.p, angles) - target, weights, kind=robust)
-        res = _fit_once(model, angles, target, w_irls, res.p if p0 is not None else None,
-                        k, lower_t, upper_t)
+        res = fit(model, angles, target, w_irls, res.p, warm0, opts, lower_t, upper_t)
     return res

@@ -4,9 +4,11 @@ Port of ``brdf_tpu/pipeline/fit.py``'s ``TexelProblem``, ``FitReport`` and
 ``fit_per_texel``: channels fold into the texel batch, saturated
 measurements are masked, one :func:`~brdf_tpu_torch.parallel.fit.fit_texels`
 call runs init → fit → IRLS rounds, and the result is reshaped to
-``(T, C, …)``. Not ported yet: the chunked resume (``checkpointer``,
-``chunk_iters``) and the scene builders ``build_face_problem`` /
-``build_pixel_problem`` (ROADMAP.md Queue A item 6), and
+``(T, C, …)``. With a checkpointer and ``chunk_iters`` the solve runs in
+resumable chunks (``_fit_chunked``): the full solver state is saved between
+chunks and a killed run picks up where it stopped. Not ported yet: the
+scene builders ``build_face_problem`` / ``build_pixel_problem`` and
+``fit_quality_metrics`` (ROADMAP.md Queue A item 6), and
 ``FitReport.statistics`` (Queue A item 9).
 """
 
@@ -19,10 +21,11 @@ import numpy as np
 import torch
 
 from brdf_tpu_torch.device import resolve_device
-from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles
+from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles, angles_from_geometry_np
 from brdf_tpu_torch.parallel.fit import fit_texels
-from brdf_tpu_torch.solver.lm import LMOptions, LMResult
-from brdf_tpu_torch.solver.robust import saturation_weights
+from brdf_tpu_torch.solver.lm import LMOptions, LMResult, StopReason
+from brdf_tpu_torch.solver.robust import robust_weights, saturation_weights
+from brdf_tpu_torch.utils.checkpoint import latest_step
 
 
 class TexelProblem(NamedTuple):
@@ -61,12 +64,82 @@ class FitReport:
         }
 
 
+def _merge_chunk(acc: LMResult, res: LMResult, active: torch.Tensor) -> LMResult:
+    """Fold one resumed chunk into the accumulated result: lanes that had
+    already terminated keep their values; lanes active this chunk take the new
+    ones, with iteration/evaluation counters accumulating."""
+    def keep(new, old):
+        return torch.where(active, new, old)
+
+    def count(new, old):
+        return old + torch.where(active, new, torch.zeros_like(new))
+
+    return LMResult(
+        p=torch.where(active[:, None], res.p, acc.p),
+        chi2=keep(res.chi2, acc.chi2),
+        chi2_init=acc.chi2_init,
+        g_inf=keep(res.g_inf, acc.g_inf),
+        iters=count(res.iters, acc.iters),
+        stop=keep(res.stop, acc.stop),
+        nfev=count(res.nfev, acc.nfev),
+        njev=count(res.njev, acc.njev),
+        mu=keep(res.mu, acc.mu),
+        nu=keep(res.nu, acc.nu),
+        nlss=count(res.nlss, acc.nlss),
+        constraint_violation=keep(res.constraint_violation, acc.constraint_violation),
+    )
+
+
+def _fit_chunked(
+    model, angles, target, dev, opts, weights, engine, checkpointer,
+    chunk_iters, resume, lower=None, upper=None,
+) -> LMResult:
+    """Run the fit in chunks of ``chunk_iters`` outer iterations,
+    checkpointing the full solver state (p, μ, ν, stop, counters) between
+    chunks and resuming from the newest checkpoint when it fits this problem.
+    Already-terminated lanes short-circuit in later chunks."""
+    t = target.shape[0]
+    acc: LMResult | None = None
+    done = 0
+    if resume and latest_step(checkpointer.path) is not None:
+        arrays, meta = checkpointer.restore()
+        if meta.get("model") == model and arrays["p"].shape[0] == t:
+            acc = LMResult(**{k: torch.as_tensor(np.asarray(arrays[k]), device=dev)
+                              for k in LMResult._fields})
+            done = int(meta["iters_done"])
+
+    while done < opts.itmax:
+        if acc is None:
+            p0, warm, active = None, None, torch.ones(t, dtype=torch.bool, device=dev)
+        else:
+            warm = acc.warm_state()
+            active = warm[2] == int(StopReason.RUNNING)
+            if not bool(active.any()):
+                break
+            p0 = acc.p
+        step = min(chunk_iters, opts.itmax - done)
+        res = fit_texels(
+            model, angles, target, opts=opts._replace(itmax=step), weights=weights, p0=p0,
+            engine=engine, warm_state=warm, lower=lower, upper=upper, device=dev,
+        )
+        acc = res if acc is None else _merge_chunk(acc, res, active)
+        done += step
+        checkpointer.maybe_save(
+            done,
+            {k: getattr(acc, k).detach().cpu().numpy() for k in LMResult._fields},
+            {"model": model, "iters_done": done},
+        )
+        if not bool((acc.stop == int(StopReason.MAX_ITERATIONS)).any()):
+            break
+    return acc
+
+
 def fit_per_texel(
     problem: TexelProblem,
     model: str = "blinn_phong",
     opts: LMOptions | None = None,
     device=None,
-    engine: str = "varpro",
+    engine: str = "auto",
     mask_saturation: bool = True,
     robust: str | None = None,
     robust_iters: int = 2,
@@ -80,23 +153,34 @@ def fit_per_texel(
 
     The arguments are those of the JAX ``fit_per_texel`` with ``mesh=``
     replaced by ``device=`` (``cuda`` unless the caller passes another).
-    ``engine`` defaults to "varpro", the one engine ported so far (the JAX
-    default "auto" raises ``NotImplementedError`` here, naming its ROADMAP
-    item). ``resume`` only matters with a checkpointer.
+    ``engine`` defaults to "auto" as there: the fused LM kernel on a CUDA
+    device, the eager LM tier on the CPU (``parallel/fit.py`` lists the
+    engines). ``mask_saturation`` zero-weights clipped measurements;
+    ``robust`` enables IRLS rounds that downweight outlier views and refit
+    warm-started; ``lower``/``upper`` override the model's default box.
+
+    ``checkpointer`` (a :class:`brdf_tpu_torch.utils.checkpoint.FitCheckpointer`)
+    with ``chunk_iters > 0`` runs the solve in resumable chunks: the full
+    solver state is saved between chunks and a killed run picks up where it
+    stopped (``resume=False`` forces a fresh start). Both LM engines carry
+    the (μ, ν, stop) continuation state across chunks.
     """
-    if checkpointer is not None or chunk_iters:
-        raise NotImplementedError(
-            "chunked resume (checkpointer/chunk_iters) is not ported yet: "
-            "ROADMAP.md Queue A item 6 (utils/checkpoint.py, _fit_chunked)"
-        )
     dev = resolve_device(device)
     spec = MODELS[model]
     if spec.tangent and problem.angles.cos_th is None:
-        raise NotImplementedError(
-            f"model {model!r} needs tangent-frame angles, which the port builds "
-            "with ROADMAP.md Queue A item 8 (models/normalmap.py)"
-        )
+        if problem.geometry is None:
+            raise ValueError(
+                f"model {model!r} needs tangent-frame angles: build the problem with "
+                "tangent_frame=True (or with its geometry)"
+            )
+        geom = type(problem.geometry)(*(
+            x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+            for x in problem.geometry))
+        ang_np = angles_from_geometry_np(geom, tangent_frame=True)
+        problem = problem._replace(angles=ShadingAngles(*(torch.as_tensor(a) for a in ang_np)))
     t, v, c = problem.intensity.shape
+    if opts is None:
+        opts = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=60)
 
     # fold channels into the batch: angles/weights repeat per channel
     ang_rep = ShadingAngles(*(
@@ -109,11 +193,24 @@ def fit_per_texel(
     if mask_saturation:
         w_rep = w_rep * saturation_weights(target)
 
-    res = fit_texels(
-        model, ang_rep, target, opts=opts, weights=w_rep, engine=engine,
-        lower=lower, upper=upper, robust=robust,
-        robust_iters=robust_iters if robust else 0, device=dev,
-    )
+    if checkpointer is not None and chunk_iters > 0:
+        res = _fit_chunked(
+            model, ang_rep, target, dev, opts, w_rep, engine, checkpointer, chunk_iters,
+            resume, lower=lower, upper=upper,
+        )
+        if robust is not None:
+            for _ in range(robust_iters):
+                w_irls = robust_weights(spec.fn(res.p, ang_rep) - target, w_rep, kind=robust)
+                res = fit_texels(
+                    model, ang_rep, target, opts=opts, weights=w_irls, p0=res.p, engine=engine,
+                    lower=lower, upper=upper, device=dev,
+                )
+    else:
+        res = fit_texels(
+            model, ang_rep, target, opts=opts, weights=w_rep, engine=engine,
+            lower=lower, upper=upper, robust=robust,
+            robust_iters=robust_iters if robust else 0, device=dev,
+        )
     params = res.p.reshape(t, c, spec.n_params)
     result = LMResult(*(x.reshape(t, c) if x.ndim == 1 else x for x in res))
     return FitReport(params=params, face_ids=problem.face_ids, result=result, model=model)

@@ -19,8 +19,27 @@ per source, in parallel), then:
    against the same pipeline run through the plain version on the card;
 5. times K1 and its plain version with CUDA events, and the warm main path
    (host clock; device time by kernel from ``torch.profiler``);
-6. prints one JSON line of every ported kernel, then the card line, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+6. holds the lobe library K0 (``csrc/lobes.cuh``, launched on its own through
+   ``csrc/lobes_eval.cu``) against its plain twin: all ten lobes, value and
+   both derivative sets;
+7. holds kernel K5 (the fused box-constrained LM fit, ``csrc/lm.cu``) against
+   its plain version on all ten lobes: a cold solve, a solve cut at 6
+   iterations and resumed from its ``(μ, ν, stop)``, and Marquardt damping;
+   blinn_phong and cook_torrance at T=131072, the others at T=16384, V=16;
+8. checks the gates of ``bench.py::_lm_general_row`` through the port
+   (cook_torrance_aniso, T=65536, grid init, itmax=24): kd recovery ≥ 0.62
+   and χ² p99 ≤ 0.12;
+9. drives the LM main path, ``fit_per_texel(engine="auto")``, on 131072
+   texels × 3 channels × 16 views: blinn_phong with huber rounds, and the
+   timber-aniso settings (ward_aniso, its box) on tangent-frame angles built
+   from synthetic geometry; counts K5's launches (1 + robust_iters per fit)
+   and holds each fit against the same pipeline with K5's plain version;
+10. runs the blinn_phong fit in checkpointed chunks of 8 iterations, straight
+    through and killed after two chunks and resumed, against the unchunked fit;
+11. times K5 (CUDA events) on the main-path calls and the gates row, with its
+    data-dependent bound, and the warm LM main path;
+12. prints one JSON line of every ported kernel (K0, K1, K5), then the card
+    line, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and the script exits non-zero without the ``ok`` line.
 It needs the repository beside it and a CUDA device; it imports nothing of
@@ -33,6 +52,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -42,11 +62,14 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch  # noqa: E402
 
-from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles  # noqa: E402
-from brdf_tpu_torch.ops import _build, varpro as k1  # noqa: E402
+from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles, shading_angles  # noqa: E402
+from brdf_tpu_torch.ops import _build, lm as k5, shading as k0, varpro as k1  # noqa: E402
 from brdf_tpu_torch.parallel import fit as pfit  # noqa: E402
+from brdf_tpu_torch.pipeline import fit as pipeline_fit  # noqa: E402
 from brdf_tpu_torch.pipeline.fit import TexelProblem, fit_per_texel  # noqa: E402
+from brdf_tpu_torch.solver.init import linear_grid_init  # noqa: E402
 from brdf_tpu_torch.solver.lm import LMOptions  # noqa: E402
+from brdf_tpu_torch.utils.checkpoint import FitCheckpointer, latest_step  # noqa: E402
 
 T_BENCH, V = 131072, 16
 T_SMALL = 16384
@@ -65,6 +88,22 @@ FP32_OPS_PER_S = 67e12
 LOBE_OPS = {"blinn_phong": 10, "phong": 16, "cook_torrance": 48, "ward": 24}
 GRID_ACC_OPS, NEWTON_ACC_OPS, RESID_OPS = 7, 15, 8
 PER_TEXEL_SOLVE_OPS = 80          # _bvls2 and the scalar Newton update
+# FP32 operations of one lobe evaluation in K5, counted the same way from
+# csrc/lobes.cuh: (the value alone — the trial χ² pass; the value with
+# dI/dparams — the Jacobian pass). dI/dangles is dead code in the solvers.
+LM_LOBE_OPS = {
+    "blinn_phong": (11, 13), "phong": (14, 19), "cook_torrance": (40, 80), "ward": (26, 34),
+    "cook_torrance_fresnel": (57, 102), "lambert": (3, 3), "minnaert": (17, 20),
+    "oren_nayar": (51, 65), "ward_aniso": (46, 81), "cook_torrance_aniso": (85, 207),
+}
+# per texel and iteration outside the view loops (csrc/lm.cu): projected
+# gradient, freeze, damped solve, projection, predicted reduction, μ/ν, stop
+LM_SOLVE_OPS = {1: 40, 2: 70, 3: 120, 4: 190, 5: 270}
+ALL_LOBES = tuple(LM_LOBE_OPS)
+# K0 and K5 round as their plain versions do (csrc/lobes.cuh), and a small
+# run on the card measured every output row equal on every lane, so the bar
+# is equality: bit for bit, or NaN on both sides
+LM_OPTS = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=60)
 DEVICE = torch.device("cuda")
 
 
@@ -284,39 +323,43 @@ def phase_main_path(errs: list[float]) -> tuple[int, dict, dict]:
     return launches, out, {name: prob for name, (prob, _) in problems.items()}
 
 
-def phase_breakdown(problems: dict) -> dict:
+def phase_breakdown(problems: dict, main_path: dict, fit, kernel: str) -> dict:
     """Warm ``fit_per_texel`` wall time (median of 3, host clock around a
     synchronised call) and, from ``torch.profiler``, the device time of one
-    warm fit by kernel: where the main path's time goes."""
+    warm fit by kernel: where the main path's time goes. ``kernel`` names the
+    fused kernel whose share is reported (``varpro_kernel`` or ``lm_kernel``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    saved = k1.LAUNCHES
+    saved = k1.LAUNCHES, k5.LAUNCHES
     out = {}
-    for name, cfg in MAIN_PATH.items():
+    for name, cfg in main_path.items():
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _fit(problems[name], cfg)
+            fit(problems[name], cfg)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _fit(problems[name], cfg)
+            fit(problems[name], cfg)
             torch.cuda.synchronize()
         kernels = sorted(
             ((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
              if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
             reverse=True)
         busy_ms = sum(k[0] for k in kernels) / 1e3
-        k1_ms = sum(k[0] for k in kernels if "varpro_kernel" in k[1]) / 1e3
+        fused_ms = sum(k[0] for k in kernels if kernel in k[1]) / 1e3
         wall = float(np.median(walls))
         out[name] = dict(
-            wall_ms_median=wall, wall_ms=walls, device_busy_ms=busy_ms, k1_device_ms=k1_ms,
+            wall_ms_median=wall, wall_ms=walls, device_busy_ms=busy_ms,
+            fused_kernel=kernel, fused_kernel_device_ms=fused_ms,
+            fused_kernel_share=fused_ms / busy_ms if busy_ms else None,
             device_idle_share=1.0 - busy_ms / wall if busy_ms else None,
             top_kernels=[dict(name=k[:90], device_ms=us / 1e3, count=c)
                          for us, k, c in kernels[:8]])
-        log(f"breakdown {name}: wall {wall:.3f} ms, device busy {busy_ms:.3f} ms, K1 {k1_ms:.3f} ms")
-    k1.LAUNCHES = saved                          # these launches are not the main path's
+        log(f"breakdown {name}: wall {wall:.3f} ms, device busy {busy_ms:.3f} ms, "
+            f"{kernel} {fused_ms:.3f} ms")
+    k1.LAUNCHES, k5.LAUNCHES = saved             # these launches are not the main path's
     return out
 
 
@@ -348,18 +391,457 @@ def phase_timing(bench_inputs) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# The lobe library K0, the fused LM kernel K5 and the LM main path
+# --------------------------------------------------------------------------
+
+def same(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise: equal bit for bit, or NaN on both sides."""
+    return (a == b) | (torch.isnan(a) & torch.isnan(b))
+
+
+def true_lm_params(rng: np.random.Generator, t: int, model: str) -> np.ndarray:
+    """Per-texel parameters inside each lobe's box."""
+    kd, ks = rng.uniform(0.1, 0.9, t), rng.uniform(0.2, 1.0, t)
+    rough = lambda: rng.uniform(0.15, 0.9, t)  # noqa: E731
+    cols = {
+        "phong": lambda: [kd, ks, rng.uniform(2.0, 30.0, t)],
+        "blinn_phong": lambda: [kd, ks, rng.uniform(2.0, 30.0, t)],
+        "cook_torrance": lambda: [kd, ks, rough()],
+        "ward": lambda: [kd, ks, rough()],
+        "cook_torrance_fresnel": lambda: [kd, ks, rough(), rng.uniform(0.2, 0.9, t)],
+        "lambert": lambda: [kd],
+        "oren_nayar": lambda: [kd, rng.uniform(0.05, 1.2, t)],
+        "minnaert": lambda: [kd, rng.uniform(0.4, 2.5, t)],
+        "ward_aniso": lambda: [kd, ks, rough(), rough(), rng.uniform(-1.2, 1.2, t)],
+        "cook_torrance_aniso": lambda: [kd, ks, rough(), rough(), rng.uniform(-1.2, 1.2, t)],
+    }[model]()
+    return np.stack(cols, -1).astype(np.float32)
+
+
+def make_lm_problem(rng: np.random.Generator, t: int, v: int, model: str):
+    """``make_problem``'s angle distribution for any of the ten lobes (the
+    six tangent-frame channels drawn in [-1, 1]), exact targets from known
+    parameters, and the grid-init start."""
+    cols = dict(
+        cos_ln=rng.uniform(0.0, 1.0, (t, v)), cos_nh=rng.uniform(0.0, 1.0, (t, v)),
+        cos_rv=rng.uniform(-1.0, 1.0, (t, v)), cos_vn=rng.uniform(0.1, 1.0, (t, v)),
+    )
+    if MODELS[model].tangent:
+        for name in ("cos_th", "cos_bh", "cos_tl", "cos_bl", "cos_tv", "cos_bv"):
+            cols[name] = rng.uniform(-1.0, 1.0, (t, v))
+    ang = ShadingAngles(**{k: torch.tensor(x, dtype=torch.float32, device=DEVICE)
+                           for k, x in cols.items()})
+    true_p = true_lm_params(rng, t, model)
+    with torch.no_grad():
+        target = MODELS[model].fn(torch.tensor(true_p, device=DEVICE), ang)
+        p0 = linear_grid_init(model, ang, target)
+    return ang, target, p0, true_p
+
+
+def k0_bytes(model: str, t: int, v: int) -> float:
+    """lobes_eval: reads A·V·T angles and m·T parameters, writes (1 + m + A)·V·T."""
+    spec = k0.SHADING_KERNELS[model]
+    a, m = len(spec.angle_names), spec.n_params
+    return 4.0 * (a * v * t + m * t + (1 + m + a) * v * t)
+
+
+def phase_k0(errs: list[float]) -> dict:
+    """Every output of every lobe function of csrc/lobes.cuh against the
+    plain twin, at the main path's width (393216 lanes × 16 views) for its
+    two lobes and at T_SMALL for the rest; the bar is equality."""
+    rng = np.random.default_rng(2)
+    out = {}
+    for model in ALL_LOBES:
+        t = T_BENCH * CHANNELS if model in ("blinn_phong", "ward_aniso") else T_SMALL
+        ang, _, p0, _ = make_lm_problem(rng, t, V, model)
+        spec = k0.SHADING_KERNELS[model]
+        a_st = torch.stack([getattr(ang, n).T for n in spec.angle_names]).contiguous()
+        prm = p0.T.contiguous()
+        got = k0.shading_eval(model, a_st, prm)
+        torch.cuda.synchronize()
+        ref = k0.shading_eval_plain(model, a_st, prm)
+        shares, err = [], 0.0
+        for g, r in zip(got, ref):
+            shares.append(float(same(g, r).double().mean()))
+            err = max(err, float(torch.nan_to_num(g - r).abs().max()))
+        errs.append(err)
+        out[model] = dict(texels=t, value_share=shares[0], dparams_share=shares[1],
+                          dangles_share=shares[2], max_abs_err=err)
+        log(f"K0 parity {model}/T={t}: value {shares[0]:.6f} dparams {shares[1]:.6f} "
+            f"dangles {shares[2]:.6f} max|d| {err:.3g}")
+        check(min(shares) == 1.0, f"K0 {model}: lobes.cuh and its plain twin differ ({shares})")
+        if model == "ward_aniso":
+            saved = k0.LAUNCHES
+            ms = cuda_ms(lambda: k0.shading_eval_cuda(model, a_st, prm), reps=20)
+            plain_ms = cuda_ms(lambda: k0.shading_eval_plain(model, a_st, prm), reps=2)
+            k0.LAUNCHES = saved
+            nbytes = k0_bytes(model, t, V)
+            ops = float(t) * V * LM_LOBE_OPS[model][1] * 1.5     # with dI/dangles
+            bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "operations": ops / FP32_OPS_PER_S * 1e3}
+            by = max(bound, key=bound.get)
+            out["timing"] = dict(model=model, texels=t, ms=ms, plain_ms=plain_ms, bytes=nbytes,
+                                 operations=ops, bound_ms=bound[by], bound_by=by)
+    return out
+
+
+def k5_operations(model: str, v: int, iters: torch.Tensor) -> float:
+    """FP32 operations K5 needs on this run's data: every lane evaluates χ²
+    once, then per iteration it ran one Jacobian pass with the normal-equation
+    accumulation, one trial χ² pass and one solve."""
+    value, full = LM_LOBE_OPS[model]
+    m = k0.SHADING_KERNELS[model].n_params
+    acc = 3 + 3 * (m * (m + 1) // 2) + 3 * m
+    per_iter = v * (full + acc) + v * (value + 4) + LM_SOLVE_OPS[m]
+    lanes = iters.numel()
+    return float(lanes) * v * (value + 4) + float(iters.double().sum()) * per_iter
+
+
+def warp_wait(iters: torch.Tensor) -> float:
+    """Iterations the warps run over iterations the lanes need: a warp of 32
+    consecutive texels iterates until its slowest lane stops."""
+    lanes = iters.numel() // 32 * 32
+    per_warp = iters[:lanes].reshape(-1, 32)
+    return float(32.0 * per_warp.amax(1).double().sum() / per_warp.double().sum().clamp(min=1.0))
+
+
+def k5_bytes(model: str, t: int, v: int) -> float:
+    """Each input read once (angles, y, w, the 8 start rows), 16 rows written."""
+    a = len(k0.SHADING_KERNELS[model].angle_names)
+    return 4.0 * t * ((a + 2) * v + 8 + 16)
+
+
+def reopen(rows: torch.Tensor) -> torch.Tensor:
+    """The start rows resuming a solve from its output rows: parameters, and
+    (μ, ν, stop) with the lanes cut at MAX_ITERATIONS set running again."""
+    start = torch.zeros((8, rows.shape[1]), dtype=rows.dtype, device=rows.device)
+    start[:5] = rows[:5]
+    start[5], start[6] = rows[9], rows[10]
+    start[7] = torch.where(rows[7] == 3.0, torch.zeros_like(rows[7]), rows[7])
+    return start
+
+
+def k5_compare(name: str, out_k: torch.Tensor, out_p: torch.Tensor, errs: list[float]) -> dict:
+    """Stop codes and iteration counts first, then parameters, then χ²."""
+    res = dict(
+        stop_share=float((out_k[7] == out_p[7]).double().mean()),
+        iters_share=float((out_k[6] == out_p[6]).double().mean()),
+        param_share=float(same(out_k[:5], out_p[:5]).all(0).double().mean()),
+        chi2_share=float(same(out_k[5], out_p[5]).double().mean()),
+        state_share=float(same(out_k[8:11], out_p[8:11]).all(0).double().mean()),
+        max_abs_err=float(torch.nan_to_num(out_k[:6] - out_p[:6]).abs().max()),
+        iters_mean=float(out_k[6].mean()), iters_max=float(out_k[6].max()),
+        stops=torch.bincount(out_k[7].long(), minlength=8).tolist(),
+    )
+    errs.append(res["max_abs_err"])
+    log(f"K5 parity {name}: stop {res['stop_share']:.6f} iters {res['iters_share']:.6f} "
+        f"params {res['param_share']:.6f} chi2 {res['chi2_share']:.6f} "
+        f"mu/nu/g {res['state_share']:.6f} max|d| {res['max_abs_err']:.3g} "
+        f"(iterations mean {res['iters_mean']:.2f} max {res['iters_max']:.0f}, stops {res['stops']})")
+    for key in ("stop_share", "iters_share", "param_share", "chi2_share", "state_share"):
+        check(res[key] == 1.0, f"K5 vs plain, {name}: {key} = {res[key]}")
+    check(bool(((out_k[7] >= 1) & (out_k[7] <= 7)).all()), f"{name}: a final stop code on every lane")
+    return res
+
+
+def phase_k5_parity(errs: list[float]) -> dict:
+    """K5 against ``lm_rows_plain`` on identical inputs on the card."""
+    rng = np.random.default_rng(3)
+    cases = {}
+    for model in ALL_LOBES:
+        t = T_BENCH if model in ("blinn_phong", "cook_torrance") else T_SMALL
+        spec = MODELS[model]
+        ang, target, p0, _ = make_lm_problem(rng, t, V, model)
+        inputs = k5.stack_inputs(model, ang, target, p0)
+        for damping in ("add", "marquardt"):
+            opts = LM_OPTS._replace(damping=damping)
+            cfg = k5.config(model, opts, spec.lower, spec.upper)
+            name = f"{model}/T={t}/{damping}"
+            one_k = k5.lm_rows_cuda(cfg, *inputs)
+            torch.cuda.synchronize()
+            one_p = k5.lm_rows_plain(cfg, *inputs)
+            cases[name + "/cold"] = k5_compare(name + "/cold", one_k, one_p, errs)
+            if damping == "marquardt":
+                continue
+            # cut at 6 iterations, resume with the returned (μ, ν, stop) for the rest
+            cfg6 = k5.config(model, opts._replace(itmax=6), spec.lower, spec.upper)
+            cfg54 = k5.config(model, opts._replace(itmax=opts.itmax - 6), spec.lower, spec.upper)
+            first_k = k5.lm_rows_cuda(cfg6, *inputs)
+            first_p = k5.lm_rows_plain(cfg6, *inputs)
+            k5_compare(name + "/cut", first_k, first_p, errs)
+            warm_k = k5.lm_rows_cuda(cfg54, *inputs[:3], reopen(first_k))
+            warm_p = k5.lm_rows_plain(cfg54, *inputs[:3], reopen(first_p))
+            res = k5_compare(name + "/warm", warm_k, warm_p, errs)
+            # a resumed solve is the uninterrupted one: same state, iterations add up
+            cut = first_k[7] == 3.0
+            rows = [0, 1, 2, 3, 4, 5, 7, 9, 10]
+            res["resume_share"] = float(same(warm_k[rows], one_k[rows]).all(0).double().mean())
+            its = torch.where(cut, first_k[6] + warm_k[6], first_k[6])
+            res["resume_iters_share"] = float((its == one_k[6]).double().mean())
+            res["lanes_resumed"] = float(cut.double().mean())
+            log(f"K5 resume {name}: {res['lanes_resumed']:.4f} of lanes resumed, equal to one run on "
+                f"{res['resume_share']:.6f}, iterations add up on {res['resume_iters_share']:.6f}")
+            check(res["resume_share"] == 1.0 and res["resume_iters_share"] == 1.0,
+                  f"{name}: a resumed solve differs from the uninterrupted one")
+            cases[name + "/warm"] = res
+    return cases
+
+
+def synthetic_geometry(rng: np.random.Generator, t: int, v: int):
+    """bench.py::_lm_general_row's scene: random surface points and normals,
+    ``v`` lights on a sphere of radius 8, the eye on the z axis."""
+    pts = rng.normal(size=(t, 3)).astype(np.float32) * 0.1
+    nrm = rng.normal(size=(t, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    d = rng.normal(size=(v, 3))
+    lights = d / np.linalg.norm(d, axis=-1, keepdims=True) * 8.0
+    as_t = lambda x: torch.tensor(x, dtype=torch.float32, device=DEVICE)  # noqa: E731
+    with torch.no_grad():
+        return shading_angles(as_t(pts), as_t(nrm), as_t([0.0, 0.0, 10.0]), as_t(lights),
+                              tangent_frame=True)
+
+
+def phase_lm_gates() -> tuple[dict, tuple]:
+    """bench.py::_lm_general_row's problem and gates, through K5."""
+    model, t = "cook_torrance_aniso", 65536
+    spec = MODELS[model]
+    rng = np.random.default_rng(5)
+    ang = synthetic_geometry(rng, t, V)
+    true_p = np.stack([rng.uniform(0.1, 0.9, t), rng.uniform(0.3, 1.0, t),
+                       rng.uniform(0.15, 0.9, t), rng.uniform(0.15, 0.9, t),
+                       rng.uniform(-1.2, 1.2, t)], -1).astype(np.float32)
+    opts = LMOptions(eps1=1e-9, eps2=1e-9, eps3=1e-14, itmax=24, tau=1e-10)
+    with torch.no_grad():
+        target = spec.fn(torch.tensor(true_p, device=DEVICE), ang)
+        p0 = linear_grid_init(model, ang, target)
+    r = k5.lm_fit_fused(model, ang, target, p0, opts=opts, lower=tuple(spec.lower),
+                        upper=tuple(spec.upper))
+    torch.cuda.synchronize()
+    chi2 = r.chi2.cpu().numpy()
+    kd = r.p[:, 0].cpu().numpy()
+    rel_kd = np.abs(kd - true_p[:, 0]) / np.maximum(np.abs(true_p[:, 0]), 1e-3)
+    gates = dict(recovery_kd=float((rel_kd < 1e-2).mean()), chi2_median=float(np.median(chi2)),
+                 chi2_p99=float(np.percentile(chi2, 99)), iters_mean=float(r.iters.mean()))
+    log(f"LM general row gates: {gates}")
+    check(np.isfinite(chi2).all() and torch.isfinite(r.p).all(), "LM row: finite parameters and chi2")
+    check(gates["recovery_kd"] >= 0.62, gates)
+    check(gates["chi2_p99"] <= 0.12, gates)
+    cfg = k5.config(model, opts, spec.lower, spec.upper)
+    return gates, (model, cfg, k5.stack_inputs(model, ang, target, p0))
+
+
+LM_MAIN_PATH = {
+    # (a) blinn_phong, huber, default options (SolverConfig: itmax=60, 2 rounds)
+    "lm-blinn": dict(model="blinn_phong", robust="huber", robust_iters=2, lower=None, upper=None),
+    # (b) the timber-aniso preset's solver settings (brdf_tpu/configs.py)
+    "timber-aniso": dict(model="ward_aniso", robust="huber", robust_iters=2,
+                         lower=[0.0, 0.0, 1e-3, 1e-3, -1.5707963],
+                         upper=[2.0, 2.0, 1.0, 1.0, 1.5707963]),
+}
+
+
+def _lm_texel_problem(model: str, seed: int) -> TexelProblem:
+    """131072 texels × 16 views × 3 channels: blinn_phong on ``make_problem``'s
+    angles, ward_aniso on tangent-frame angles from synthetic geometry."""
+    rng = np.random.default_rng(seed)
+    if MODELS[model].tangent:
+        ang = synthetic_geometry(rng, T_BENCH, V)
+    else:
+        ang, _, _ = make_problem(rng, T_BENCH, V, model)
+    with torch.no_grad():
+        inten = torch.stack([
+            MODELS[model].fn(torch.tensor(true_lm_params(rng, T_BENCH, model), device=DEVICE), ang)
+            for _ in range(CHANNELS)], -1)
+    return TexelProblem(angles=ang, intensity=inten, weights=torch.ones(T_BENCH, V, device=DEVICE),
+                        face_ids=np.arange(T_BENCH))
+
+
+def _lm_fit(problem, cfg, **kw):
+    """The entry point as a user calls it: the default engine, "auto"."""
+    return fit_per_texel(problem, cfg["model"], opts=LM_OPTS, device="cuda",
+                         robust=cfg["robust"], robust_iters=cfg["robust_iters"],
+                         lower=cfg["lower"], upper=cfg["upper"], **kw)
+
+
+def report_share(rep, ref) -> dict:
+    """Two fit reports lane for lane: stop codes, iterations, parameters, χ²."""
+    a, b = rep.result, ref.result
+    return dict(
+        stop_share=float((a.stop == b.stop).double().mean()),
+        iters_share=float((a.iters == b.iters).double().mean()),
+        param_share=float(same(a.p, b.p).all(-1).double().mean()),
+        chi2_share=float(same(a.chi2, b.chi2).double().mean()),
+        max_abs_err=float(torch.nan_to_num(a.p - b.p).abs().max()),
+    )
+
+
+def phase_lm_main_path(errs: list[float]) -> tuple[int, dict, dict]:
+    problems = {name: _lm_texel_problem(cfg["model"], seed=11 + i)
+                for i, (name, cfg) in enumerate(LM_MAIN_PATH.items())}
+    torch.cuda.synchronize()
+    reports, counts = {}, {}
+    k5.LAUNCHES = 0                              # the LM main path starts here
+    for name, cfg in LM_MAIN_PATH.items():
+        before = k5.LAUNCHES
+        t0 = time.perf_counter()
+        rep = _lm_fit(problems[name], cfg)
+        torch.cuda.synchronize()
+        reports[name] = (rep, time.perf_counter() - t0)
+        counts[name] = k5.LAUNCHES - before
+    launches = k5.LAUNCHES                       # ... and ends here
+    out = {}
+    for name, cfg in LM_MAIN_PATH.items():
+        rep, secs = reports[name]
+        m = MODELS[cfg["model"]].n_params
+        check(counts[name] == 1 + cfg["robust_iters"],
+              f"{name}: engine='auto' launched K5 {counts[name]} times, "
+              f"expected {1 + cfg['robust_iters']}")
+        res = rep.result
+        check(rep.params.shape == (T_BENCH, CHANNELS, m), f"{name}: parameters of shape (T, C, m)")
+        check(bool(((res.stop >= 1) & (res.stop <= 7)).all()), f"{name}: a final stop code on every lane")
+        check(torch.isfinite(res.chi2).all() and torch.isfinite(rep.params).all(),
+              f"{name}: finite parameters and chi2")
+        spec = MODELS[cfg["model"]]
+        lo = torch.tensor(spec.lower if cfg["lower"] is None else cfg["lower"], device=DEVICE)
+        hi = torch.tensor(spec.upper if cfg["upper"] is None else cfg["upper"], device=DEVICE)
+        check(bool(((rep.params >= lo) & (rep.params <= hi)).all()), f"{name}: parameters inside the box")
+        check(bool((res.nfev == 2 * res.iters + 1).all()), f"{name}: nfev = 2·iters + 1")
+        # the same call with K5's plain version stood in for the kernel
+        before = k5.LAUNCHES
+        with mock.patch.object(k5, "lm_rows_cuda", k5.lm_rows_plain):
+            ref = _lm_fit(problems[name], cfg)
+        torch.cuda.synchronize()
+        check(k5.LAUNCHES == before, "the plain stand-in must not count as a launch")
+        share = report_share(rep, ref)
+        errs.append(share["max_abs_err"])
+        out[name] = dict(launches=counts[name], fits=T_BENCH * CHANNELS, first_wall_s=secs,
+                         chi2_median=float(res.chi2.median()),
+                         converged_fraction=rep.converged_fraction(),
+                         iters_mean=float(res.iters.double().mean()),
+                         stops=torch.bincount(res.stop.flatten().long(), minlength=8).tolist(),
+                         **share)
+        log(f"LM main path {name}: {out[name]}")
+        for key in ("stop_share", "iters_share", "param_share", "chi2_share"):
+            check(share[key] == 1.0, f"{name}: kernel path vs plain path, {key} = {share[key]}")
+    return launches, out, problems
+
+
+class _Killed(Exception):
+    """Stands for the process dying between two chunks."""
+
+
+def phase_chunked(problem: TexelProblem) -> dict:
+    """The blinn_phong fit without IRLS in checkpointed chunks of 8
+    iterations: straight through, and killed after two chunks and resumed
+    from the checkpoint; both against the unchunked fit."""
+    cfg = dict(LM_MAIN_PATH["lm-blinn"], robust=None, robust_iters=0)
+    saved = k5.LAUNCHES
+    whole = _lm_fit(problem, cfg)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        straight = _lm_fit(problem, cfg, checkpointer=FitCheckpointer(os.path.join(tmp, "a")),
+                           chunk_iters=8)
+        torch.cuda.synchronize()
+        out["straight"] = dict(report_share(straight, whole), wall_s=time.perf_counter() - t0,
+                               last_step=latest_step(os.path.join(tmp, "a")))
+        real, calls = pipeline_fit.fit_texels, []
+
+        def dies_in_the_third_chunk(*a, **kw):
+            if len(calls) == 2:
+                raise _Killed
+            calls.append(1)
+            return real(*a, **kw)
+
+        ckpt = FitCheckpointer(os.path.join(tmp, "b"))
+        killed = False
+        with mock.patch.object(pipeline_fit, "fit_texels", dies_in_the_third_chunk):
+            try:
+                _lm_fit(problem, cfg, checkpointer=ckpt, chunk_iters=8)
+            except _Killed:
+                killed = True
+        check(killed and latest_step(ckpt.path) == 16, "the run was killed after two chunks")
+        before = k5.LAUNCHES
+        resumed = _lm_fit(problem, cfg, checkpointer=ckpt, chunk_iters=8)
+        torch.cuda.synchronize()
+        out["resumed"] = dict(report_share(resumed, whole), chunks_after_resume=k5.LAUNCHES - before,
+                              last_step=latest_step(ckpt.path))
+    k5.LAUNCHES = saved                          # these launches are not the main path's
+    for name, res in out.items():
+        log(f"chunked fit {name}: {res}")
+        for key in ("stop_share", "iters_share", "param_share", "chi2_share"):
+            check(res[key] == 1.0, f"chunked fit ({name}) vs unchunked, {key} = {res[key]}")
+    check(out["resumed"]["chunks_after_resume"] >= 1, "the resumed run continued from the checkpoint")
+    return out
+
+
+def phase_lm_timing(problems: dict, gates_row) -> dict:
+    """K5 per launch (CUDA events; 20 back-to-back launches, median of 3
+    runs) and its plain version (one run between events) at round 0 of each
+    main-path fit (393216 lanes, saturation weights, grid-init start) and on
+    the gates row, each with the bound its own iteration counts give."""
+    calls = {}
+    for name, cfg in LM_MAIN_PATH.items():
+        model, problem = cfg["model"], problems[name]
+        spec = MODELS[model]
+        ang = ShadingAngles(*(None if a is None else a.repeat_interleave(CHANNELS, 0)
+                              for a in problem.angles))
+        y = problem.intensity.permute(0, 2, 1).reshape(-1, V)
+        w = (y < 0.98).float()
+        with torch.no_grad():
+            p0 = linear_grid_init(model, ang, y, weights=w)
+        lm_cfg = k5.config(model, LM_OPTS, spec.lower if cfg["lower"] is None else cfg["lower"],
+                           spec.upper if cfg["upper"] is None else cfg["upper"])
+        calls[name] = (model, lm_cfg, k5.stack_inputs(model, ang, y, p0, w))
+    calls["lm-general-row"] = gates_row
+    saved = k5.LAUNCHES
+    res = {}
+    for key, (model, lm_cfg, inputs) in calls.items():
+        t = inputs[0].shape[-1]
+        rows = k5.lm_rows_cuda(lm_cfg, *inputs)
+        ms = cuda_ms(lambda: k5.lm_rows_cuda(lm_cfg, *inputs), reps=20)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        k5.lm_rows_plain(lm_cfg, *inputs)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        ops, nbytes = k5_operations(model, V, rows[6]), k5_bytes(model, t, V)
+        bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / FP32_OPS_PER_S * 1e3}
+        by = max(bound, key=bound.get)
+        res[key] = dict(model=model, texels=t, itmax=lm_cfg.itmax, iters_mean=float(rows[6].mean()),
+                        iters_max=float(rows[6].max()), warp_wait=warp_wait(rows[6]),
+                        ms=ms, plain_ms=plain_ms,
+                        fits_per_s=t / (ms * 1e-3), bytes=nbytes, operations=ops,
+                        bound_ms=bound[by], bound_by=by, bound_bytes_ms=bound["bytes"],
+                        bound_operations_ms=bound["operations"])
+        log(f"K5 timing {key}: {res[key]}")
+    k5.LAUNCHES = saved                          # timing launches are not the main path's
+    return res
+
+
+def ptxas_numbers() -> dict:
+    """What the assembler said of each kernel built by this run."""
+    return {name: _build.ptxas_report(text) for name, text in _build.BUILD_LOGS.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     _build.build_all()
-    log(f"built {list(_build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
+    log(f"built {list(_build.SOURCES)} in {time.perf_counter() - t_start:.1f} s")
     card = card_line()
     name = torch.cuda.get_device_name(0)
     log(f"card: {card}")
 
+    def lap(what):
+        log(f"[{time.perf_counter() - t_start:7.1f} s] {what} done")
+
+    # K1 and the VarPro main path
     errs_parity: list[float] = []
     parity = phase_parity(errs_parity)
     gates, bench_inputs = phase_gates()
@@ -367,18 +849,68 @@ def main() -> int:
     launches, main_path, problems = phase_main_path(errs_main)
     check(launches > 0, "the main path never launched K1")
     timing = phase_timing(bench_inputs)
-    breakdown = phase_breakdown(problems)
+    breakdown = phase_breakdown(problems, MAIN_PATH, _fit, "varpro_kernel")
+    del problems, bench_inputs
+    lap("K1 and the VarPro main path")
 
-    print(json.dumps({
+    # K0 on its own, K5 and the LM main path
+    errs_k0: list[float] = []
+    k0_cases = phase_k0(errs_k0)
+    lap("K0 parity")
+    errs_k5: list[float] = []
+    k5_cases = phase_k5_parity(errs_k5)
+    lap("K5 parity")
+    lm_gates, gates_row = phase_lm_gates()
+    errs_lm_main: list[float] = []
+    lm_launches, lm_main_path, lm_problems = phase_lm_main_path(errs_lm_main)
+    check(lm_launches > 0, "the LM main path never launched K5")
+    lap("LM gates and main path")
+    chunked = phase_chunked(lm_problems["lm-blinn"])
+    lap("chunked resume")
+    lm_timing = phase_lm_timing(lm_problems, gates_row)
+    lm_breakdown = phase_breakdown(lm_problems, LM_MAIN_PATH, _lm_fit, "lm_kernel")
+    lap("LM timing and breakdown")
+
+    numbers = {
         "numbers": {
             "card": card, "kernel": "K1 varpro (csrc/varpro.cu)",
             "bench_row": dict(timing["bench"], model="blinn_phong", grid=8, **gates),
             "main_path_call": dict(timing["main"], model="blinn_phong"),
             "main_path": main_path, "main_path_warm": breakdown, "parity": parity,
-        }
-    }))
-    main_t = timing["main"]
+        },
+        "numbers_lm": {
+            "card": card, "kernel": "K5 fused LM (csrc/lm.cu), K0 lobes (csrc/lobes.cuh)",
+            "k0_parity": k0_cases, "k5_parity": k5_cases,
+            "lm_general_row": dict(lm_timing["lm-general-row"], **lm_gates),
+            "main_path_calls": {k: v for k, v in lm_timing.items() if k != "lm-general-row"},
+            "main_path": lm_main_path, "main_path_warm": lm_breakdown, "chunked": chunked,
+            "ptxas": ptxas_numbers(), "seconds": time.perf_counter() - t_start,
+        },
+    }
+    for key, value in numbers.items():
+        print(json.dumps({key: value}))
+    # the same numbers as a file beside the script, for a caller that keeps
+    # only the end of the output
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_numbers.json"), "w") as fh:
+        json.dump(numbers, fh, indent=1)
+    main_t, k0_t, k5_t = timing["main"], k0_cases["timing"], lm_timing["lm-blinn"]
     print(json.dumps({"kernels": [{
+        # device functions inlined into K1 and K5: they run once per launch of
+        # either; timed and compared through csrc/lobes_eval.cu (ward_aniso)
+        "name": "lobes_k0",
+        "route": "cuda",
+        "source": "brdf_tpu_torch/csrc/lobes.cuh",
+        "replaces": "brdf_tpu/ops/shading_pallas.py:495",
+        "launches": launches + lm_launches,
+        "max_abs_err": max(errs_k0),
+        "ms": k0_t["ms"],
+        "plain_ms": k0_t["plain_ms"],
+        "bound_ms": k0_t["bound_ms"],
+        "bound_by": k0_t["bound_by"],
+        "library_ms": None,
+    }, {
         "name": "varpro_k1",
         "route": "cuda",
         "source": "brdf_tpu_torch/csrc/varpro.cu",
@@ -390,7 +922,20 @@ def main() -> int:
         "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "lm_k5",
+        "route": "cuda",
+        "source": "brdf_tpu_torch/csrc/lm.cu",
+        "replaces": "brdf_tpu/ops/lm_pallas.py:137",
+        "launches": lm_launches,
+        "max_abs_err": max(errs_k5 + errs_lm_main),
+        "ms": k5_t["ms"],
+        "plain_ms": k5_t["plain_ms"],
+        "bound_ms": k5_t["bound_ms"],
+        "bound_by": k5_t["bound_by"],
+        "library_ms": None,
     }]}))
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

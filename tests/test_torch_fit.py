@@ -26,6 +26,7 @@ from brdf_tpu.ops.varpro_pallas import varpro_fit_pallas  # noqa: E402
 from brdf_tpu.pipeline.fit import TexelProblem as JProblem  # noqa: E402
 from brdf_tpu.solver.robust import robust_weights, saturation_weights  # noqa: E402
 from brdf_tpu_torch import convert  # noqa: E402
+from brdf_tpu_torch.models.brdf import ShadingAngles as ShadingAnglesT  # noqa: E402
 from brdf_tpu_torch.parallel import fit as tfit  # noqa: E402
 from brdf_tpu_torch.pipeline.fit import FitReport, TexelProblem, fit_per_texel  # noqa: E402
 from brdf_tpu_torch.solver.lm import LMOptions  # noqa: E402
@@ -106,8 +107,8 @@ def test_fit_per_texel_matches_the_tpu_program(preset, monkeypatch):
     bumped = np.where(bump == 0, bumped,
                       np.nextafter(bumped, np.copysign(np.float32(np.inf), bump)))
     rep_ulp = fit_per_texel(convert.from_numpy(problem._replace(intensity=bumped)), model,
-                            opts=opts, device="cpu", robust=cfg["robust"], robust_iters=2,
-                            lower=cfg["lower"], upper=cfg["upper"])
+                            opts=opts, device="cpu", engine="varpro", robust=cfg["robust"],
+                            robust_iters=2, lower=cfg["lower"], upper=cfg["upper"])
     pu = rep_ulp.params.numpy().reshape(T * C, 3)
     # 0.05 ≈ three standard deviations of a share estimated on 288 lanes
     for rtol in (1e-4, 1e-2):
@@ -188,18 +189,25 @@ def test_entry_points_raise_without_a_gpu():
 
 
 def test_later_slices_raise_not_implemented():
+    """What the port still leaves to later slices raises and names its
+    ROADMAP item; the LM engines no longer do (test_torch_fit_lm.py)."""
     problem, _, _ = _problem("blinn_phong", seed=2)
     tp = convert.from_numpy(problem)
     ang, y = tp.angles, tp.intensity[..., 0]
     for engine in ("auto", "pallas", "xla"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfit.fit_texels("blinn_phong", ang, y, engine=engine, device="cpu")
+        res = tfit.fit_texels("blinn_phong", ang, y, opts=LMOptions(itmax=2), engine=engine,
+                              device="cpu")
+        assert res.p.shape == (T, 3)
     for model in ("cook_torrance_fresnel", "ward_aniso", "cook_torrance_aniso"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfit.fit_texels(model, ang, y, device="cpu")
+            tfit.fit_texels(model, ang, y, engine="varpro", device="cpu")
     with pytest.raises(ValueError, match="separable"):
-        tfit.fit_texels("lambert", ang, y, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        fit_per_texel(tp, checkpointer=object(), chunk_iters=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        tfit.fit_texels("lambert", ang, y, engine="varpro", device="cpu")
+    with pytest.raises(ValueError, match="unknown engine"):
+        tfit.fit_texels("lambert", ang, y, engine="mosaic", device="cpu")
+    # a view count the fused LM kernel cannot hold waits for the chunked tier
+    wide = ShadingAnglesT(*(None if a is None else a.repeat(1, 400) for a in ang))
+    with pytest.raises(NotImplementedError, match="Queue B item 5"):
+        tfit.fit_texels("blinn_phong", wide, y.repeat(1, 400), engine="pallas", device="cpu")
+    with pytest.raises(ValueError, match="tangent-frame"):
         fit_per_texel(tp, "ward_aniso", device="cpu")

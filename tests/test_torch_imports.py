@@ -40,6 +40,25 @@ def test_port_files_exist():
     files = _port_files()
     assert (ROOT / "chip_smoke.py").exists()
     assert len(files) > 10
+    names = {str(f.relative_to(ROOT)) for f in files}
+    # the modules of the LM path are scanned with the rest
+    assert {"brdf_tpu_torch/ops/lm.py", "brdf_tpu_torch/models/normalmap.py",
+            "brdf_tpu_torch/utils/checkpoint.py", "brdf_tpu_torch/utils/__init__.py"} <= names
+
+
+def test_new_modules_import_without_a_gpu_toolchain():
+    """Importing the port builds nothing and needs neither nvcc nor triton."""
+    import importlib
+    import sys
+
+    for mod in ("ops.lm", "ops.shading", "ops._build", "models.normalmap", "utils.checkpoint",
+                "parallel.fit", "pipeline.fit", "convert"):
+        importlib.import_module("brdf_tpu_torch." + mod)
+    from brdf_tpu_torch.ops import _build, lm
+
+    assert "triton" not in sys.modules
+    assert set(_build.SOURCES) >= {"varpro", "lm"} and lm.LAUNCHES == 0
+    assert not _build.BUILD_LOGS
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))

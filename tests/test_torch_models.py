@@ -149,13 +149,19 @@ def test_shading_angles_match_jax():
 
 
 def test_tangent_frame_waits_for_its_slice():
+    """The tangent-frame channels no longer wait: both twins fill them (their
+    values are held against the JAX package in test_torch_fit_lm.py). What
+    still waits is the rest of models/normalmap.py, the joint tier."""
     g = tb.shading_geometry_np(np.zeros((2, 3)), np.array([[0, 0, 1.0]] * 2),
                                np.array([0, 0, 5.0]), np.ones((3, 3)))
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        tb.angles_from_geometry_np(g, tangent_frame=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        tb.shading_angles(torch.zeros(2, 3), torch.tensor([[0, 0, 1.0]] * 2),
-                          torch.tensor([0, 0, 5.0]), torch.ones(3, 3), tangent_frame=True)
+    na = tb.angles_from_geometry_np(g, tangent_frame=True)
+    ta = tb.shading_angles(torch.zeros(2, 3), torch.tensor([[0, 0, 1.0]] * 2),
+                           torch.tensor([0, 0, 5.0]), torch.ones(3, 3), tangent_frame=True)
+    for name in ("cos_th", "cos_bh", "cos_tl", "cos_bl", "cos_tv", "cos_bv"):
+        assert getattr(na, name).shape == (2, 3) and getattr(ta, name).shape == (2, 3)
+        np.testing.assert_allclose(getattr(ta, name).numpy(), getattr(na, name), atol=1e-6)
+    from brdf_tpu_torch.models import normalmap
+    assert not hasattr(normalmap, "joint_residual")
 
 
 def test_convert_round_trips_angles():

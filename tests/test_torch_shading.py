@@ -53,5 +53,6 @@ def test_plain_lobe_matches_pallas_library(model, edges):
 
 def test_lobe_ids_are_distinct():
     """The selector each spec hands to csrc/lobes.cuh's lobe_full<L>."""
-    assert sorted(s.lobe_id for s in T_KERNELS.values()) == [0, 1, 2, 3]
-    assert set(T_KERNELS) == set(SEPARABLE)
+    assert sorted(s.lobe_id for s in T_KERNELS.values()) == list(range(10))
+    assert [T_KERNELS[m].lobe_id for m in SEPARABLE] == [0, 1, 2, 3]
+    assert set(T_KERNELS) == set(J_KERNELS)
