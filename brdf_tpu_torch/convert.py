@@ -14,6 +14,13 @@ reads — and returns the port's type with tensors on ``device``.
 types take those as ``JaxType(**x._asdict())``. dtypes are kept as they
 are. ``TexelProblem``'s host metadata (``face_ids``, ``pixels``, ``points``,
 ``normals``) stays numpy in both packages.
+
+The host types ``Scene``, ``TriangleMesh``, ``Camera``, ``RasterMap`` and
+``Texelization`` have numpy leaves in both packages. Both functions take one
+of either package and return the port's type, built field by field with
+numpy leaves (a camera that a scene repeats stays one object, since
+``Scene.raster_map`` caches per camera object), so a test feeds both
+packages one scene.
 """
 
 from __future__ import annotations
@@ -21,15 +28,34 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from brdf_tpu_torch.geometry.camera import Camera
+from brdf_tpu_torch.geometry.mesh import TriangleMesh
+from brdf_tpu_torch.geometry.rasterize import RasterMap
+from brdf_tpu_torch.geometry.texel import Texelization
 from brdf_tpu_torch.models.brdf import ShadingAngles, ShadingGeometry
 from brdf_tpu_torch.ops.lm import PallasFitResult
 from brdf_tpu_torch.pipeline.fit import TexelProblem
+from brdf_tpu_torch.pipeline.scene import Scene
 from brdf_tpu_torch.solver.lm import LMResult
 from brdf_tpu_torch.solver.varpro import VarProResult
 
 _TYPES = {cls.__name__: cls for cls in
           (ShadingAngles, ShadingGeometry, TexelProblem, LMResult, PallasFitResult, VarProResult)}
 _HOST_FIELDS = {"face_ids", "pixels", "points", "normals"}
+_HOST_TYPES = {cls.__name__: cls for cls in (TriangleMesh, Camera, RasterMap, Texelization)}
+
+
+def _host(obj):
+    """A host type of either package → the port's, with numpy leaves."""
+    name = type(obj).__name__
+    if name == "Scene":
+        seen: dict = {}
+        cams = [seen.setdefault(id(c), _host(c)) for c in obj.cameras]
+        return Scene(mesh=_host(obj.mesh), cameras=cams, lights=np.asarray(obj.lights),
+                     images=np.asarray(obj.images), name=obj.name)
+    cls = _HOST_TYPES[name]
+    return cls(**{k: v if isinstance(v, int) else np.asarray(v)
+                  for k, v in obj._asdict().items() if k in cls._fields})
 
 
 def from_numpy(obj, device="cpu"):
@@ -37,6 +63,8 @@ def from_numpy(obj, device="cpu"):
     if obj is None:
         return None
     name = type(obj).__name__
+    if name == "Scene" or name in _HOST_TYPES:
+        return _host(obj)
     if hasattr(obj, "_fields"):
         if name not in _TYPES:
             raise TypeError(f"no port type for {name}")
@@ -67,6 +95,8 @@ def to_numpy(obj):
         return None
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu().numpy()
+    if type(obj).__name__ == "Scene" or type(obj).__name__ in _HOST_TYPES:
+        return _host(obj)
     if hasattr(obj, "_fields"):
         return type(obj)(*(to_numpy(x) for x in obj))
     if isinstance(obj, (tuple, list)):

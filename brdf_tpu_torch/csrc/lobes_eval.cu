@@ -3,8 +3,9 @@
 //
 // It exists so that every output of every function in lobes.cuh (kernel K0,
 // which replaces brdf_tpu/ops/shading_pallas.py::SHADING_KERNELS and is
-// otherwise only inlined into the solver kernels, where dI/dangles is dead
-// code) can be held against the plain twin brdf_tpu_torch/ops/shading.py on
+// otherwise only inlined into other kernels, each of which reads a part of it:
+// the solvers the value and dI/dparams, shade.cu one output a kernel) can be
+// held against the plain twin brdf_tpu_torch/ops/shading.py at once on
 // the card. What bounds it on an H100 is bytes: it reads A + m/V floats per
 // pair and writes 1 + m + A, with a few dozen operations between.
 //

@@ -12,9 +12,17 @@ alike:
 - ``csrc/lobes.cuh``, scalar ``__device__`` functions that every kernel of
   the port includes. They launch nothing by themselves; the fused VarPro
   kernel (``ops/varpro.py``) and the fused LM kernel (``ops/lm.py``) call
-  them per (view, texel). ``csrc/lobes_eval.cu`` wraps them in a kernel of
-  their own (:func:`shading_eval`) so that all three outputs of every lobe
-  can be held against this file on the card.
+  them per (view, texel) and read the value and ∂I/∂params, and the shading
+  kernels below read one output each (∂I/∂angles in ``shade_bwd_angles``).
+  ``csrc/lobes_eval.cu`` wraps them in a kernel of their own
+  (:func:`shading_eval`) so that all three outputs of every lobe can be held
+  against this file on the card at once.
+
+On top of the library sit the forward shading kernel and its analytic
+backward (``csrc/shade.cu``; K2, K3, K4 of ``brdf_tpu/ops/shading_pallas.py``):
+:func:`shade` is ``shade_pallas``'s public contract, differentiable through
+``torch.autograd`` to the parameters and to every angle channel the lobe
+reads, with a plain PyTorch version of each kernel beside it.
 
 Each partial matches ``models/brdf.py`` including its clamp and mask
 subgradient conventions. Masks select (``torch.where``) wherever the
@@ -38,6 +46,9 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+from torch.autograd.function import once_differentiable
+
+from brdf_tpu_torch.models.brdf import ShadingAngles
 
 _EPS = 1e-12
 _INV_PI = 1.0 / math.pi
@@ -450,6 +461,9 @@ SHADING_KERNELS: dict[str, ShadingKernelSpec] = {
 # Launches of csrc/lobes_eval.cu made by shading_eval_cuda since the count was
 # last reset.
 LAUNCHES = 0
+# Launches of each kernel of csrc/shade.cu (K2 "fwd", K3 "bwd_params",
+# K4 "bwd_angles") since the counts were last reset.
+SHADE_LAUNCHES = {"fwd": 0, "bwd_params": 0, "bwd_angles": 0}
 
 
 def shading_eval_plain(model: str, ang: torch.Tensor, params: torch.Tensor):
@@ -514,3 +528,170 @@ def shading_eval(model: str, ang: torch.Tensor, params: torch.Tensor):
     if ang.device.type == "cpu":
         return shading_eval_plain(model, ang, params)
     raise ValueError(f"the lobe library runs on cuda or cpu, not {ang.device}")
+
+
+# ---------------------------------------------------------------------------
+# Forward shading and its analytic backward (csrc/shade.cu: K2, K3, K4)
+# ---------------------------------------------------------------------------
+
+
+def _param_rows(spec: ShadingKernelSpec, params: torch.Tensor):
+    return tuple(params[j:j + 1] for j in range(spec.n_params))
+
+
+def shade_fwd_plain(model: str, ang: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """K2's plain version: ``ang (A, V, T)``, ``params (m, T)`` → ``I (V, T)``."""
+    spec = SHADING_KERNELS[model]
+    return spec.eval(tuple(ang), _param_rows(spec, params))[0]
+
+
+def shade_bwd_params_plain(model: str, ang: torch.Tensor, params: torch.Tensor,
+                           ct: torch.Tensor) -> torch.Tensor:
+    """K3's plain version: ``Σ_v ∂I/∂p_j · ct`` → ``(m, T)``. The views are
+    summed left to right from zero, in the kernel's order."""
+    spec = SHADING_KERNELS[model]
+    _, d_p, _ = spec.eval(tuple(ang), _param_rows(spec, params))
+    rows = []
+    for d_j in d_p:
+        x = d_j * ct
+        acc = torch.zeros_like(x[0])
+        for v in range(x.shape[0]):
+            acc = acc + x[v]
+        rows.append(acc)
+    return torch.stack(rows)
+
+
+def shade_bwd_angles_plain(model: str, ang: torch.Tensor, params: torch.Tensor,
+                           ct: torch.Tensor) -> torch.Tensor:
+    """K4's plain version: ``∂I/∂angle_a · ct`` → ``(A, V, T)``."""
+    spec = SHADING_KERNELS[model]
+    _, _, d_a = spec.eval(tuple(ang), _param_rows(spec, params))
+    return torch.stack([d * ct for d in d_a])
+
+
+@functools.lru_cache(maxsize=None)
+def _shade_entries():
+    from brdf_tpu_torch.ops import _build
+
+    lib = _build.load("shade")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.brdf_shade_fwd.argtypes = [i, p, p, p, i, i, p]
+    lib.brdf_shade_bwd_params.argtypes = [i, p, p, p, p, i, i, p]
+    lib.brdf_shade_bwd_angles.argtypes = [i, p, p, p, p, i, i, p]
+    entries = {"fwd": lib.brdf_shade_fwd, "bwd_params": lib.brdf_shade_bwd_params,
+               "bwd_angles": lib.brdf_shade_bwd_angles}
+    for fn in entries.values():
+        fn.restype = ctypes.c_int
+    return entries
+
+
+def _shade_launch(kernel: str, model: str, out_shape, ang: torch.Tensor, *rest: torch.Tensor):
+    """Check the inputs, allocate the output and launch one kernel of
+    ``csrc/shade.cu`` on the current stream."""
+    spec = SHADING_KERNELS[model]
+    for x in (ang, *rest):
+        if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError("the shading kernels take contiguous float32 CUDA tensors")
+        if x.device != ang.device:
+            raise ValueError("the shading kernels' inputs must lie on one device")
+    _, v, t = ang.shape
+    if v * t >= 2**31:
+        raise ValueError(f"one shading launch covers fewer than 2^31 (view, texel) pairs, "
+                         f"got V·T={v * t}")
+    out = torch.empty(out_shape, dtype=torch.float32, device=ang.device)
+    if v * t == 0:
+        return out.zero_()
+    stream = torch.cuda.current_stream(ang.device).cuda_stream
+    with torch.cuda.device(ang.device):
+        err = _shade_entries()[kernel](spec.lobe_id, ang.data_ptr(), *(x.data_ptr() for x in rest),
+                                       out.data_ptr(), t, v, stream)
+    if err != 0:
+        raise RuntimeError(f"csrc/shade.cu: shade_{kernel} launch failed with cudaError {err}")
+    SHADE_LAUNCHES[kernel] += 1
+    return out
+
+
+def shade_fwd_cuda(model: str, ang: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """Launch K2: ``I (V, T)`` and nothing else written."""
+    return _shade_launch("fwd", model, ang.shape[1:], ang, params)
+
+
+def shade_bwd_params_cuda(model: str, ang: torch.Tensor, params: torch.Tensor,
+                          ct: torch.Tensor) -> torch.Tensor:
+    """Launch K3: the parameter cotangents ``(m, T)``, summed over views."""
+    return _shade_launch("bwd_params", model, params.shape, ang, params, ct)
+
+
+def shade_bwd_angles_cuda(model: str, ang: torch.Tensor, params: torch.Tensor,
+                          ct: torch.Tensor) -> torch.Tensor:
+    """Launch K4: the angle cotangents ``(A, V, T)``."""
+    return _shade_launch("bwd_angles", model, ang.shape, ang, params, ct)
+
+
+_SHADE_PLAIN = {"fwd": shade_fwd_plain, "bwd_params": shade_bwd_params_plain,
+                "bwd_angles": shade_bwd_angles_plain}
+
+
+def _shade_run(kernel: str, model: str, ang: torch.Tensor, *rest: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel for CUDA tensors, its plain version for CPU tensors;
+    neither stands in for the other."""
+    if ang.is_cuda:
+        cuda = {"fwd": shade_fwd_cuda, "bwd_params": shade_bwd_params_cuda,
+                "bwd_angles": shade_bwd_angles_cuda}[kernel]
+        return cuda(model, ang, *rest)
+    if ang.device.type == "cpu":
+        return _SHADE_PLAIN[kernel](model, ang, *rest)
+    raise ValueError(f"the shading kernels run on cuda or cpu, not {ang.device}")
+
+
+class _ShadeVT(torch.autograd.Function):
+    """Views-major core: angles ``(A, V, T)``, parameters ``(m, T)`` →
+    ``I (V, T)``. The backward recomputes the lobe from the saved inputs and
+    launches K3 only when the parameters need a gradient and K4 only when the
+    angles do."""
+
+    @staticmethod
+    def forward(ctx, model: str, ang_stack: torch.Tensor, p_rows: torch.Tensor):
+        ctx.model = model
+        ctx.save_for_backward(ang_stack, p_rows)
+        return _shade_run("fwd", model, ang_stack, p_rows)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct: torch.Tensor):
+        ang_stack, p_rows = ctx.saved_tensors
+        ct = ct.contiguous()
+        d_ang = d_p = None
+        if ctx.needs_input_grad[1]:
+            d_ang = _shade_run("bwd_angles", ctx.model, ang_stack, p_rows, ct)
+        if ctx.needs_input_grad[2]:
+            d_p = _shade_run("bwd_params", ctx.model, ang_stack, p_rows, ct)
+        return None, d_ang, d_p
+
+
+def shade(model: str, params: torch.Tensor, angles: ShadingAngles) -> torch.Tensor:
+    """Shade T texels under V lights: ``params (T, m)``, every channel of
+    ``angles`` ``(T, V)`` → ``(T, V)`` float32, with the analytic forward and
+    backward of ``csrc/shade.cu`` (no autodiff inside the lobe).
+
+    The contract of ``brdf_tpu/ops/shading_pallas.py::shade_pallas`` without
+    its ``block_t``/``interpret`` arguments: the public layout is texel-major,
+    the kernels' is views-major, and the wrapper stacks the channels the lobe
+    reads and transposes. Differentiable to ``params`` and to every channel
+    the lobe reads; a channel it does not read takes no part in the graph and
+    gets no gradient. CUDA tensors launch the kernels, CPU tensors run their
+    plain versions.
+    """
+    spec = SHADING_KERNELS[model]
+    chans = [getattr(angles, name) for name in spec.angle_names]
+    missing = [name for name, c in zip(spec.angle_names, chans) if c is None]
+    if missing:
+        raise ValueError(f"{model} reads the angle channels {missing}, which are not filled "
+                         "(build the angles with tangent_frame=True)")
+    t, v = chans[0].shape
+    if params.shape != (t, spec.n_params):
+        raise ValueError(f"{model} takes params of shape (T, {spec.n_params}) = "
+                         f"({t}, {spec.n_params}), got {tuple(params.shape)}")
+    ang_stack = torch.stack([c.to(torch.float32).T for c in chans])     # (A, V, T), contiguous
+    p_rows = params.to(torch.float32).T.contiguous()                    # (m, T)
+    return _ShadeVT.apply(model, ang_stack, p_rows).T

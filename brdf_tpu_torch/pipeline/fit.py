@@ -1,15 +1,19 @@
-"""Per-texel fit driver.
+"""The per-texel fit and the scene → problem builders.
 
-Port of ``brdf_tpu/pipeline/fit.py``'s ``TexelProblem``, ``FitReport`` and
-``fit_per_texel``: channels fold into the texel batch, saturated
-measurements are masked, one :func:`~brdf_tpu_torch.parallel.fit.fit_texels`
-call runs init → fit → IRLS rounds, and the result is reshaped to
-``(T, C, …)``. With a checkpointer and ``chunk_iters`` the solve runs in
-resumable chunks (``_fit_chunked``): the full solver state is saved between
-chunks and a killed run picks up where it stopped. Not ported yet: the
-scene builders ``build_face_problem`` / ``build_pixel_problem`` and
-``fit_quality_metrics`` (ROADMAP.md Queue A item 6), and
-``FitReport.statistics`` (Queue A item 9).
+Port of ``brdf_tpu/pipeline/fit.py``'s ``TexelProblem``, ``FitReport``,
+``fit_per_texel``, ``build_face_problem``, ``build_pixel_problem`` and
+``fit_quality_metrics``. The builders are host NumPy (copied): they gather
+per-face or per-pixel shading angles and measured intensities from a
+:class:`~brdf_tpu_torch.pipeline.scene.Scene` through its z-buffered raster
+maps. ``fit_per_texel`` folds channels into the texel batch, masks saturated
+measurements, runs one :func:`~brdf_tpu_torch.parallel.fit.fit_texels` call
+(init → fit → IRLS rounds) and reshapes the result to ``(T, C, …)``. With a
+checkpointer and ``chunk_iters`` the solve runs in resumable chunks
+(``_fit_chunked``): the full solver state is saved between chunks and a
+killed run picks up where it stopped. Not ported yet: cast-shadow weights
+(``shadow_weights=True``, ROADMAP.md Queue A item 10), the joint normal-map
+tier (Queue A item 8), ``fit_single_material`` and ``FitReport.statistics``
+(Queue A item 9).
 """
 
 from __future__ import annotations
@@ -21,8 +25,16 @@ import numpy as np
 import torch
 
 from brdf_tpu_torch.device import resolve_device
-from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles, angles_from_geometry_np
+from brdf_tpu_torch.geometry.texel import pixel_texels, sample_views
+from brdf_tpu_torch.models.brdf import (
+    MODELS,
+    ShadingAngles,
+    ShadingGeometry,
+    angles_from_geometry_np,
+    shading_geometry_np,
+)
 from brdf_tpu_torch.parallel.fit import fit_texels
+from brdf_tpu_torch.pipeline.scene import Scene
 from brdf_tpu_torch.solver.lm import LMOptions, LMResult, StopReason
 from brdf_tpu_torch.solver.robust import robust_weights, saturation_weights
 from brdf_tpu_torch.utils.checkpoint import latest_step
@@ -39,6 +51,115 @@ class TexelProblem(NamedTuple):
     pixels: np.ndarray | None = None   # (T, 2) for pixel-granularity texels
     points: np.ndarray | None = None   # (T, 3) texel surface positions
     normals: np.ndarray | None = None  # (T, 3) texel shading normals
+
+
+def _no_shadow_weights() -> NotImplementedError:
+    return NotImplementedError(
+        "shadow_weights=True needs geometry/visibility.py::light_visibility, which is not "
+        "ported yet (ROADMAP.md Queue A item 10)")
+
+
+def build_face_problem(
+    scene: Scene, dtype=np.float32, with_geometry: bool = False,
+    tangent_frame: bool = False, shadow_weights: bool = False,
+    shadow_resolution: int = 512,
+) -> TexelProblem:
+    """One texel per *visible* mesh face; per-face intensity = mean over the
+    pixels the face covers in each view (z-buffered visibility).
+
+    The reference instead fit every covered pixel separately with its face's
+    angles (``brdfdata.cpp:1195-1221``) — equivalent information, ~200× more
+    solves for identical per-face results; pixel-level texels come from UV
+    texelization (see ``texel.py``) where parameters genuinely vary per pixel.
+    """
+    if shadow_weights:
+        raise _no_shadow_weights()
+    mesh = scene.mesh
+    f_count = mesh.num_faces
+    v_count = scene.num_views
+
+    # Everything here is host-side NumPy (copied from the JAX package):
+    # fit_per_texel uploads the finished arrays once.
+    sums = np.zeros((v_count, f_count, 3), np.float64)
+    counts = np.zeros((v_count, f_count), np.int64)
+    for vi in range(v_count):
+        rm = scene.raster_map(vi)
+        fid = rm.face_id
+        cov = fid >= 0
+        ids = fid[cov]
+        img = scene.images[vi][cov].astype(np.float64)
+        # bincount-based segment sum: ~10× faster than np.add.at's
+        # element-at-a-time scatter on large covered-pixel sets
+        for ch in range(3):
+            sums[vi, :, ch] = np.bincount(ids, weights=img[:, ch], minlength=f_count)
+        counts[vi] = np.bincount(ids, minlength=f_count)
+
+    visible = counts.sum(axis=0) > 0
+    face_ids = np.nonzero(visible)[0]
+
+    c = counts[:, face_ids].T                       # (T, V)
+    seen = c > 0
+    mean_i = (
+        sums[:, face_ids].transpose(1, 0, 2)
+        / np.maximum(c, 1)[..., None]
+    ).astype(np.float32)                            # (T, V, 3)
+    mean_i[~seen] = 0.0
+    weights = seen.astype(np.float32)
+
+    centroids = mesh.centroids[face_ids]
+    normals = mesh.face_normals[face_ids]
+    geom = shading_geometry_np(centroids, normals, scene.eyes(), scene.lights)
+    geom = ShadingGeometry(*(a.astype(np.dtype(dtype)) for a in geom))
+
+    return TexelProblem(
+        angles=angles_from_geometry_np(
+            geom, tangent_frame=tangent_frame, dtype=np.dtype(dtype)
+        ),
+        intensity=mean_i,
+        weights=weights,
+        face_ids=face_ids,
+        geometry=geom if with_geometry else None,
+    )
+
+
+def build_pixel_problem(
+    scene: Scene,
+    reference_view: int = 0,
+    stride: int = 1,
+    smooth_normals: bool = True,
+    dtype=np.float32,
+    with_geometry: bool = False,
+    tangent_frame: bool = False,
+    shadow_weights: bool = False,
+    shadow_resolution: int = 512,
+) -> TexelProblem:
+    """One texel per covered *pixel* of a reference view — the reference's
+    actual fit granularity (``brdfdata.cpp:1195-1221``), but with hit-point
+    interpolated positions/normals and reprojection sampling with z-buffer
+    visibility per view (multi-camera capable)."""
+    if shadow_weights:
+        raise _no_shadow_weights()
+    tex = pixel_texels(
+        scene.mesh, scene.raster_map(reference_view), stride=stride,
+        smooth_normals=smooth_normals,
+    )
+    intensity, weights = sample_views(tex, scene)
+
+    # host-side NumPy throughout (see build_face_problem)
+    geom = shading_geometry_np(tex.points, tex.normals, scene.eyes(), scene.lights)
+    geom = ShadingGeometry(*(a.astype(np.dtype(dtype)) for a in geom))
+    return TexelProblem(
+        angles=angles_from_geometry_np(
+            geom, tangent_frame=tangent_frame, dtype=np.dtype(dtype)
+        ),
+        intensity=intensity.astype(np.dtype(dtype)),
+        weights=weights.astype(np.dtype(dtype)),
+        face_ids=tex.face_ids,
+        geometry=geom if with_geometry else None,
+        pixels=tex.pixels,
+        points=tex.points,
+        normals=tex.normals,
+    )
 
 
 @dataclasses.dataclass
@@ -62,6 +183,181 @@ class FitReport:
             "p90": float(np.percentile(chi2, 90)),
             "max": float(chi2.max()),
         }
+
+
+def _to_numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _reprojection(model: str, mask_saturation: bool, params, angles, intensity, weights, gains):
+    """Per-channel weighted reprojection error of fitted params against the
+    measured intensities (MAE + RMSE over seen views), on tensors.
+    ``mask_saturation`` excludes sensor-ceiling measurements per channel,
+    consistent with the fit's own masking — a blown-out pixel is not a model
+    error (its fraction is reported separately). ``gains`` (V,) scales the
+    predictions per view (all-ones when the run fit none).
+
+    params (T, C, m); intensity (T, V, C); weights (T, V)."""
+    spec = MODELS[model]
+    mae, rmse, sat = [], [], []
+    seen = weights > 0
+    for ch in range(params.shape[1]):
+        pred = spec.fn(params[:, ch, :], angles) * gains[None, :]  # (T, V)
+        y = intensity[:, :, ch]
+        w = weights
+        sat.append(torch.sum((y >= 0.98) & seen) / torch.clamp(torch.sum(seen), min=1))
+        if mask_saturation:
+            w = w * (y < 0.98)
+        # single-w weighting for BOTH metrics: MAE = Σ w·|e| / Σ w,
+        # RMSE = √(Σ w·e² / Σ w)
+        err = torch.abs(pred - y)
+        n = torch.clamp(torch.sum(w), min=1e-12)
+        mae.append(torch.sum(w * err) / n)
+        rmse.append(torch.sqrt(torch.sum(w * err * err) / n))
+    return torch.stack(mae), torch.stack(rmse), torch.stack(sat)
+
+
+def fit_quality_metrics(
+    problem: TexelProblem,
+    params: np.ndarray,          # (T, C, m)
+    model: str,
+    lower=None,
+    upper=None,
+    chi2: np.ndarray | None = None,
+    stop: np.ndarray | None = None,
+    mask_saturation: bool = True,
+    joint_normals: bool = False,
+    view_gains: np.ndarray | None = None,
+    device=None,
+) -> dict:
+    """Quantitative fit-quality audit for a (real-data) run.
+
+    The reference's only self-inspection was printing kd/ks/n averages
+    (``brdfdata.cpp:1224-1226``). This computes, per run:
+
+    - per-channel render-vs-photo reprojection error (weighted MAE/RMSE of
+      the fitted model against the measured intensities, seen views only),
+    - the fraction of texels with each parameter pinned at its box bounds
+      (a pinned parameter is either a real material property at the edge of
+      the physical range or an unidentifiable DOF parked by the solver —
+      either way it belongs in the run record),
+    - convergence fraction and χ² summary when solver outputs are supplied,
+
+    and emits a ``warnings`` list for the pathologies that would otherwise
+    hide in a summary (a parameter map with kd median 0.0 and ks pinned at
+    its upper bound, with nothing flagging it).
+
+    ``device`` is where the reprojection runs (``cuda`` unless the caller
+    passes another). ``joint_normals=True`` belongs to the joint normal-map
+    tier, which is not ported yet.
+    """
+    if joint_normals:
+        raise NotImplementedError(
+            "joint_normals=True audits a joint normal-map fit, which is not ported yet "
+            "(ROADMAP.md Queue A item 8)")
+    dev = resolve_device(device)
+    spec = MODELS[model]
+    params = _to_numpy(params)
+    t, c, m = params.shape
+    lo = np.ravel(np.asarray(spec.lower if lower is None else lower, np.float64))
+    hi = np.ravel(np.asarray(spec.upper if upper is None else upper, np.float64))
+
+    v = problem.intensity.shape[1]
+    gains = (np.ones((v,), np.float32) if view_gains is None
+             else np.asarray(view_gains, np.float32))
+    intensity = _to_numpy(problem.intensity).astype(np.float32)
+    w_np = _to_numpy(problem.weights).astype(np.float32)
+    if w_np.ndim == 3:
+        # per-channel (T, V, 3) weight stacks collapse to the shared view
+        # mask for the audit (a view counts as seen if ANY channel saw it;
+        # the metric applies its own per-channel saturation mask anyway)
+        w_np = w_np.max(-1)
+    as_t = lambda x: torch.as_tensor(x).to(dev)  # noqa: E731
+    with torch.no_grad():
+        mae, rmse, sat = _reprojection(
+            model, bool(mask_saturation), as_t(params),
+            ShadingAngles(*(None if a is None else as_t(a) for a in problem.angles)),
+            as_t(intensity), as_t(w_np), as_t(gains),
+        )
+    mae, rmse, sat = (x.cpu().numpy() for x in (mae, rmse, sat))
+
+    out: dict = {
+        "model": model,
+        "texels": int(t),
+        "reprojection_mae": [float(x) for x in mae],
+        "reprojection_rmse": [float(x) for x in rmse],
+        "saturated_fraction": [float(x) for x in np.asarray(sat)],
+        "intensity_mean": [
+            float(x) for x in intensity.mean((0, 1))
+        ],
+    }
+    if view_gains is not None:
+        out["view_gains"] = [round(float(g), 4) for g in gains]
+    at_bounds = {}
+    for j, name in enumerate(spec.param_names[:m]):
+        vals = params[:, :, j]
+        span = max(hi[j] - lo[j], 1e-12)
+        at_lo = float((vals <= lo[j] + 1e-6 * span).mean())
+        at_hi = float((vals >= hi[j] - 1e-6 * span).mean())
+        at_bounds[name] = {"lower": at_lo, "upper": at_hi}
+    out["fraction_at_bounds"] = at_bounds
+
+    if chi2 is not None:
+        chi2 = _to_numpy(chi2)
+        out["chi2"] = {
+            "median": float(np.median(chi2)),
+            "p90": float(np.percentile(chi2, 90)),
+        }
+    if stop is not None:
+        out["converged_fraction"] = float(
+            np.isin(_to_numpy(stop), (1, 2, 6)).mean()
+        )
+
+    warnings = []
+    if model == "cook_torrance_fresnel":
+        # Documented ambiguity (measured, not hypothetical): ks·F(f0)
+        # couples the two specular scales; at 16 views synthetic recovery
+        # tops out at 0.78 even with the exact scale-profiled solve, with
+        # χ² at the floor — see the model docstring. The parameter MAPS
+        # can be non-unique even when the reprojection error is good.
+        warnings.append(
+            "model cook_torrance_fresnel: ks and f0 are coupled (ks·F(f0)) "
+            "and only weakly identifiable at rig-scale view counts — "
+            "individual ks/f0 maps may be non-unique even at low "
+            "reprojection error; trust ks·F(f0) and compare against plain "
+            "cook_torrance before using f0 quantitatively"
+        )
+    mean_i = max(float(np.mean(out["intensity_mean"])), 1e-9)
+    for ch, e in enumerate(mae):
+        if e > 0.5 * mean_i:
+            warnings.append(
+                f"channel {ch}: reprojection MAE {e:.4f} exceeds half the "
+                f"mean measured intensity ({mean_i:.4f}) — the fit does not "
+                "explain the photos"
+            )
+    for name, fr in at_bounds.items():
+        if fr["upper"] > 0.2:
+            msg = (
+                f"param {name}: {fr['upper']:.0%} of texels pinned at the "
+                f"UPPER bound — raise the bound or suspect non-identifiability"
+            )
+            # Scanned-normal error launders into clamped specular params
+            # (the JAX package measured ks pinned on 59% of a scanned
+            # bunny's texels per channel against 3% under the joint fit).
+            msg += (
+                "; on real scans this usually means normal error — "
+                "refit with the joint normal-map tier "
+                "(ModelConfig.joint_normalmap / the *-joint presets)"
+            )
+            warnings.append(msg)
+        if fr["lower"] > 0.5:
+            warnings.append(
+                f"param {name}: {fr['lower']:.0%} of texels at the LOWER "
+                "bound — verify against the reprojection error before "
+                "trusting the maps"
+            )
+    out["warnings"] = warnings
+    return out
 
 
 def _merge_chunk(acc: LMResult, res: LMResult, active: torch.Tensor) -> LMResult:

@@ -1,0 +1,130 @@
+# Adapted from brdf_tpu/pipeline/scene.py (the port imports nothing of brdf_tpu).
+"""Scene container: mesh + calibrated cameras + light rig + image stacks.
+
+The analogue of ``CBRDFdata``'s data half (``brdfdata.h:54-105``),
+generalized: a scene holds V *views*, each (camera, light, image). The
+reference's datasets have one fixed camera and 16 LED positions; multi-camera
+rigs just vary the camera per view.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import os
+import tempfile
+import zipfile
+
+import numpy as np
+
+from brdf_tpu_torch.geometry.camera import Camera
+from brdf_tpu_torch.geometry.mesh import TriangleMesh
+from brdf_tpu_torch.geometry.rasterize import RasterMap, rasterize_mesh
+from brdf_tpu_torch.io import load_cal, load_scene_images, led_rig_positions
+
+# the disk tier of Scene.raster_map: a directory of this package's own
+CACHE_DIR_ENV = "BRDF_TPU_TORCH_CACHE_DIR"
+
+
+def _default_cache_dir() -> str:
+    return os.path.join(tempfile.gettempdir(), "brdf_tpu_torch_cache")
+
+
+@dataclasses.dataclass
+class Scene:
+    mesh: TriangleMesh
+    cameras: list[Camera]          # length V (may be the same camera repeated)
+    lights: np.ndarray             # (V, 3) light position per view
+    images: np.ndarray             # (V, H, W, 3) float32 in [0, 1]
+    name: str = "scene"
+    _raster_cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def num_views(self) -> int:
+        return len(self.cameras)
+
+    def raster_map(self, view: int = 0) -> RasterMap:
+        """Pixel↔surface map for a view (cached in memory per camera object
+        and — keyed by a (mesh, camera) content hash — on disk, so repeated
+        runs over the same scene skip rasterization entirely; set
+        ``BRDF_TPU_TORCH_CACHE_DIR=`` empty to disable the disk tier)."""
+        cam = self.cameras[view]
+        key = id(cam)
+        if key not in self._raster_cache:
+            self._raster_cache[key] = self._raster_cached(cam)
+        return self._raster_cache[key]
+
+    def _raster_cached(self, cam: Camera) -> RasterMap:
+        cache_dir = os.environ.get(CACHE_DIR_ENV, _default_cache_dir())
+        if not cache_dir:
+            return rasterize_mesh(
+                cam, np.asarray(self.mesh.vertices), np.asarray(self.mesh.faces)
+            )
+        verts = np.ascontiguousarray(np.asarray(self.mesh.vertices, np.float64))
+        faces = np.ascontiguousarray(np.asarray(self.mesh.faces, np.int64))
+        hsh = hashlib.sha1()
+        hsh.update(verts.tobytes())
+        hsh.update(faces.tobytes())
+        for field in ("rotation", "position", "f", "cx", "cy", "sx", "kappa1"):
+            hsh.update(np.asarray(getattr(cam, field), np.float64).tobytes())
+        hsh.update(np.asarray([cam.width, cam.height]).tobytes())
+        path = os.path.join(cache_dir, f"raster_{hsh.hexdigest()}.npz")
+        if os.path.exists(path):
+            try:
+                with np.load(path) as z:
+                    return RasterMap(
+                        face_id=z["face_id"], bary=z["bary"], depth=z["depth"]
+                    )
+            except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+                pass  # corrupt/partial cache entry: fall through and rebuild
+        rm = rasterize_mesh(cam, verts, faces)
+        try:
+            os.makedirs(cache_dir, exist_ok=True)
+            tmp = path + f".tmp{os.getpid()}.npz"
+            np.savez(tmp, face_id=rm.face_id, bary=rm.bary, depth=rm.depth)
+            os.replace(tmp, path)
+        except OSError:
+            pass  # cache dir unwritable: still return the fresh map
+        return rm
+
+    def eyes(self) -> np.ndarray:
+        """(V, 3) camera position per view."""
+        return np.stack([np.asarray(c.position) for c in self.cameras])
+
+
+def load_reference_scene(
+    scene_dir: str,
+    cal_name: str | None = None,
+    num_images: int = 16,
+    dtype=np.float32,
+) -> Scene:
+    """Load a dataset laid out as the reference's (``img/{cup,bunny,timber,complexScene}``):
+    16 LED-lit PNGs + dark frame + scanned OBJ + Tsai ``.cal``
+    (``main.cpp:26-60`` equivalent, minus the double dark-subtraction bug)."""
+    name = os.path.basename(scene_dir.rstrip("/"))
+    obj = None
+    cal_path = None
+    for fn in sorted(os.listdir(scene_dir)):
+        if fn.endswith(".obj"):
+            obj = os.path.join(scene_dir, fn)
+        if fn.endswith(".cal") and (cal_name is None or fn == cal_name):
+            cal_path = os.path.join(scene_dir, fn)
+    if cal_path is None:
+        raise FileNotFoundError(f"no .cal in {scene_dir}")
+
+    images = load_scene_images(scene_dir, num_images)
+    v, h, wdt = images.shape[0], images.shape[1], images.shape[2]
+    cal = load_cal(cal_path)
+    camera = Camera.from_calibration(cal, width=wdt, height=h, dtype=dtype)
+    lights = led_rig_positions()[:v]
+
+    if obj is None:
+        raise FileNotFoundError(f"no .obj in {scene_dir}")
+    mesh = TriangleMesh.from_obj(obj, dtype=dtype)
+    return Scene(
+        mesh=mesh,
+        cameras=[camera] * v,
+        lights=lights,
+        images=images,
+        name=name,
+    )

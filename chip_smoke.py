@@ -38,8 +38,28 @@ per source, in parallel), then:
     through and killed after two chunks and resumed, against the unchunked fit;
 11. times K5 (CUDA events) on the main-path calls and the gates row, with its
     data-dependent bound, and the warm LM main path;
-12. prints one JSON line of every ported kernel (K0, K1, K5), then the card
-    line, then ``{"ok": true, "device": {...}}`` as the last line.
+12. holds the shading kernels K2, K3 and K4 (``csrc/shade.cu``: forward,
+    parameter cotangents, angle cotangents) against their plain versions on
+    all ten lobes with full-range cosines: cook_torrance at 1048576 × 16,
+    ward_aniso at 393216 × 16, the rest at 16384 × 16, an odd T, a V=600
+    case and three with cosines exactly on the clamp edges -1, 0 and 1; and the autograd wiring of ``shade`` (K3 and K4 launched exactly
+    when the caller asks for that gradient);
+13. drives the serve path at full width: an icosphere of 81920 faces seen by
+    a 1024 × 1024 camera under the 16-LED rig, ``relight`` under all 16 LEDs
+    and a ``render_turntable`` of 12 frames at 512 × 512, then one gradient of
+    a fit loss through ``shade`` at 1048576 × 16 to parameters and angles;
+    counts K2, K3 and K4's launches and holds every result against the same
+    call through the plain versions, and ``engine="xla"`` against K2;
+14. closes the loop on the card: renders that scene's 16 LED views from known
+    per-face parameters, ``build_face_problem`` → ``fit_per_texel`` (K5) →
+    ``render_image`` from the fit (view-0 RMS < 0.02, converged > 0.97), and
+    the same at pixel granularity (``build_pixel_problem`` at stride 2 →
+    ``render_pixel_fit``);
+15. times K2, K3, K4 (CUDA events) with their byte bounds, and splits the
+    wall time of ``relight`` and of one turntable frame into rasterize,
+    gather, device and copy back;
+16. prints one JSON line of every ported kernel (K0–K5), then the card line,
+    then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and the script exits non-zero without the ``ok`` line.
 It needs the repository beside it and a CUDA device; it imports nothing of
@@ -54,6 +74,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import ExitStack
 from unittest import mock
 
 import numpy as np
@@ -62,11 +83,23 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch  # noqa: E402
 
+from brdf_tpu_torch import native  # noqa: E402
+from brdf_tpu_torch.geometry import Camera, TriangleMesh  # noqa: E402
+from brdf_tpu_torch.geometry.primitives import icosphere  # noqa: E402
+from brdf_tpu_torch.geometry.rasterize import rasterize_mesh  # noqa: E402
+from brdf_tpu_torch.io import led_rig_positions  # noqa: E402
 from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles, shading_angles  # noqa: E402
 from brdf_tpu_torch.ops import _build, lm as k5, shading as k0, varpro as k1  # noqa: E402
 from brdf_tpu_torch.parallel import fit as pfit  # noqa: E402
 from brdf_tpu_torch.pipeline import fit as pipeline_fit  # noqa: E402
-from brdf_tpu_torch.pipeline.fit import TexelProblem, fit_per_texel  # noqa: E402
+from brdf_tpu_torch.pipeline import render as prender  # noqa: E402
+from brdf_tpu_torch.pipeline import scene as pscene  # noqa: E402
+from brdf_tpu_torch.pipeline.fit import (  # noqa: E402
+    TexelProblem,
+    build_face_problem,
+    build_pixel_problem,
+    fit_per_texel,
+)
 from brdf_tpu_torch.solver.init import linear_grid_init  # noqa: E402
 from brdf_tpu_torch.solver.lm import LMOptions  # noqa: E402
 from brdf_tpu_torch.utils.checkpoint import FitCheckpointer, latest_step  # noqa: E402
@@ -105,6 +138,14 @@ ALL_LOBES = tuple(LM_LOBE_OPS)
 # is equality: bit for bit, or NaN on both sides
 LM_OPTS = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=60)
 DEVICE = torch.device("cuda")
+# the shading batch of bench.py::_shading_rows, and the serve scene: an
+# icosphere of 20·4^6 = 81920 faces that covers half of a 1024 × 1024 frame
+T_SHADE = 1048576
+SERVE_SUBDIV, SERVE_SIZE, SERVE_FOCAL = 6, 1024, 2700.0
+TURNTABLE_FRAMES, TURNTABLE_SIZE = 12, 512
+# K2 against the eager lobe of models/brdf.py, the bar of
+# tests/test_shading_pallas.py::test_render_pixels_engine_parity
+XLA_RTOL, XLA_ATOL = 3e-5, 1e-6
 
 
 def check(ok, what) -> None:
@@ -323,42 +364,49 @@ def phase_main_path(errs: list[float]) -> tuple[int, dict, dict]:
     return launches, out, {name: prob for name, (prob, _) in problems.items()}
 
 
-def phase_breakdown(problems: dict, main_path: dict, fit, kernel: str) -> dict:
-    """Warm ``fit_per_texel`` wall time (median of 3, host clock around a
-    synchronised call) and, from ``torch.profiler``, the device time of one
-    warm fit by kernel: where the main path's time goes. ``kernel`` names the
-    fused kernel whose share is reported (``varpro_kernel`` or ``lm_kernel``)."""
+def warm_profile(call, kernel: str) -> dict:
+    """Warm wall time of ``call`` (median of 3, host clock around a
+    synchronised call) and, from ``torch.profiler`` over one more call, its
+    device time by kernel. ``kernel`` names the hand-written kernel whose
+    share is reported."""
     from torch.profiler import ProfilerActivity, profile
 
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = sorted(
+        ((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+         if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
+        reverse=True)
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    fused_ms = sum(k[0] for k in kernels if kernel in k[1]) / 1e3
+    wall = float(np.median(walls))
+    return dict(
+        wall_ms_median=wall, wall_ms=walls, device_busy_ms=busy_ms,
+        fused_kernel=kernel, fused_kernel_device_ms=fused_ms,
+        fused_kernel_share=fused_ms / busy_ms if busy_ms else None,
+        device_idle_share=1.0 - busy_ms / wall if busy_ms else None,
+        top_kernels=[dict(name=k[:90], device_ms=us / 1e3, count=c)
+                     for us, k, c in kernels[:8]])
+
+
+def phase_breakdown(problems: dict, main_path: dict, fit, kernel: str) -> dict:
+    """Where a warm ``fit_per_texel`` spends its time, for each fit of a main
+    path (``kernel`` is ``varpro_kernel`` or ``lm_kernel``)."""
     saved = k1.LAUNCHES, k5.LAUNCHES
     out = {}
     for name, cfg in main_path.items():
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fit(problems[name], cfg)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fit(problems[name], cfg)
-            torch.cuda.synchronize()
-        kernels = sorted(
-            ((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
-             if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
-            reverse=True)
-        busy_ms = sum(k[0] for k in kernels) / 1e3
-        fused_ms = sum(k[0] for k in kernels if kernel in k[1]) / 1e3
-        wall = float(np.median(walls))
-        out[name] = dict(
-            wall_ms_median=wall, wall_ms=walls, device_busy_ms=busy_ms,
-            fused_kernel=kernel, fused_kernel_device_ms=fused_ms,
-            fused_kernel_share=fused_ms / busy_ms if busy_ms else None,
-            device_idle_share=1.0 - busy_ms / wall if busy_ms else None,
-            top_kernels=[dict(name=k[:90], device_ms=us / 1e3, count=c)
-                         for us, k, c in kernels[:8]])
-        log(f"breakdown {name}: wall {wall:.3f} ms, device busy {busy_ms:.3f} ms, "
-            f"{kernel} {fused_ms:.3f} ms")
+        out[name] = warm_profile(lambda: fit(problems[name], cfg), kernel)
+        log(f"breakdown {name}: wall {out[name]['wall_ms_median']:.3f} ms, device busy "
+            f"{out[name]['device_busy_ms']:.3f} ms, {kernel} "
+            f"{out[name]['fused_kernel_device_ms']:.3f} ms")
     k1.LAUNCHES, k5.LAUNCHES = saved             # these launches are not the main path's
     return out
 
@@ -821,6 +869,438 @@ def phase_lm_timing(problems: dict, gates_row) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# The shading kernels K2-K4, the serve path and the closed loop
+# --------------------------------------------------------------------------
+
+SHADE_KERNELS = ("fwd", "bwd_params", "bwd_angles")
+SHADE_CUDA = {"fwd": "shade_fwd_cuda", "bwd_params": "shade_bwd_params_cuda",
+              "bwd_angles": "shade_bwd_angles_cuda"}
+
+
+def shade_counts() -> dict:
+    return dict(k0.SHADE_LAUNCHES)
+
+
+def reset_shade_counts() -> None:
+    for key in k0.SHADE_LAUNCHES:
+        k0.SHADE_LAUNCHES[key] = 0
+
+
+def plain_shading():
+    """The plain versions stood in for K2, K3 and K4 on the card (they count
+    no launch): the reference a kernel path is held against."""
+    stack = ExitStack()
+    for kernel, cuda_name in SHADE_CUDA.items():
+        stack.enter_context(mock.patch.object(k0, cuda_name, k0._SHADE_PLAIN[kernel]))
+    return stack
+
+
+def make_shade_case(rng: np.random.Generator, model: str, t: int, v: int, edges: bool = False):
+    """bench.py::_shading_rows's distribution for any lobe, views-major:
+    full-range cosines (about half the rays below the horizon), N·V in
+    [0.05, 1], parameters inside the box, a normal cotangent. With ``edges``
+    a tenth of the cosines sit exactly on -1, 0 or 1: the clamp and mask
+    edges (where autodiff of the oren_nayar model gives NaN; the hand-written
+    partials select around it, in the kernels and in their plain versions)."""
+    spec = k0.SHADING_KERNELS[model]
+    ang = rng.uniform(-1.0, 1.0, (len(spec.angle_names), v, t)).astype(np.float32)
+    if "cos_vn" in spec.angle_names:
+        ang[spec.angle_names.index("cos_vn")] = rng.uniform(0.05, 1.0, (v, t))
+    if edges:
+        on_edge = rng.uniform(size=ang.shape) < 0.1
+        ang[on_edge] = rng.choice(np.float32([-1.0, 0.0, 1.0]), int(on_edge.sum()))
+    as_t = lambda x: torch.tensor(x, dtype=torch.float32, device=DEVICE)  # noqa: E731
+    return (as_t(ang), as_t(true_lm_params(rng, t, model).T.copy()),
+            as_t(rng.normal(size=(v, t))))
+
+
+def shade_bytes(model: str, t: int, v: int) -> dict:
+    """Each input read once, each output written once (csrc/shade.cu)."""
+    spec = k0.SHADING_KERNELS[model]
+    a, m = len(spec.angle_names), spec.n_params
+    return {"fwd": 4.0 * t * (a * v + m + v),
+            "bwd_params": 4.0 * t * (a * v + v + m + m),
+            "bwd_angles": 4.0 * t * (a * v + v + m + a * v)}
+
+
+def shade_operations(model: str, t: int, v: int) -> dict:
+    """FP32 operations, with LM_LOBE_OPS' counts of one lobe evaluation (the
+    angle derivatives counted as half the parameter ones again, as for K0)."""
+    spec = k0.SHADING_KERNELS[model]
+    value, full = LM_LOBE_OPS[model]
+    pairs = float(t) * v
+    return {"fwd": pairs * value, "bwd_params": pairs * (full + 2 * spec.n_params),
+            "bwd_angles": pairs * (full * 1.5 - value + len(spec.angle_names))}
+
+
+def run_shade(kernel: str, model: str, ang, prm, ct, plain: bool = False):
+    fns = k0._SHADE_PLAIN if plain else {k: getattr(k0, n) for k, n in SHADE_CUDA.items()}
+    return fns[kernel](model, ang, prm) if kernel == "fwd" else fns[kernel](model, ang, prm, ct)
+
+
+def phase_shade_parity(errs: dict) -> dict:
+    """K2, K3 and K4 against their plain versions on identical inputs on the
+    card. They run the same lobes.cuh code as K0 under -fmad=false and K3 sums
+    its views in the plain version's order, so the bar is equality on every
+    lane, NaN with NaN."""
+    rng = np.random.default_rng(21)
+    cases = [(model, {"cook_torrance": T_SHADE, "ward_aniso": T_BENCH * CHANNELS}.get(model, T_SMALL),
+              V, False) for model in ALL_LOBES]
+    cases += [("blinn_phong", 517, V, False), ("cook_torrance", 300, 600, False)]
+    cases += [(model, T_SMALL, V, True) for model in ("oren_nayar", "cook_torrance", "ward_aniso")]
+    out = {}
+    for model, t, v, edges in cases:
+        ang, prm, ct = make_shade_case(rng, model, t, v, edges)
+        name = f"{model}/T={t}/V={v}" + ("/edges" if edges else "")
+        out[name] = {}
+        for kernel in SHADE_KERNELS:
+            got = run_shade(kernel, model, ang, prm, ct)
+            torch.cuda.synchronize()
+            ref = run_shade(kernel, model, ang, prm, ct, plain=True)
+            check(got.shape == ref.shape, f"{name}: {kernel} shape {tuple(got.shape)}")
+            share = float(same(got, ref).double().mean())
+            err = float(torch.nan_to_num(got - ref).abs().max())
+            errs[kernel].append(err)
+            out[name][kernel] = dict(share=share, max_abs_err=err,
+                                     nan_share=float(torch.isnan(got).double().mean()))
+            check(share == 1.0, f"{name}: shade_{kernel} and its plain version differ ({share})")
+            del got, ref
+        log(f"K2-K4 parity {name}: " + " ".join(
+            f"{k} {out[name][k]['share']:.6f}" for k in SHADE_KERNELS))
+    return out
+
+
+def phase_shade_autograd(errs: dict) -> dict:
+    """``torch.autograd.grad`` of ``0.5·Σ(shade(p, a) − y)²`` on the card for
+    parameters only, angles only and both: K3 and K4 launch exactly when that
+    gradient is asked for, and the gradients equal the plain versions'."""
+    model, t = "cook_torrance", T_SMALL
+    rng = np.random.default_rng(22)
+    ang_vt, prm, _ = make_shade_case(rng, model, t, V)
+    names = k0.SHADING_KERNELS[model].angle_names
+    y = torch.tensor(rng.uniform(0.0, 1.0, (t, V)), dtype=torch.float32, device=DEVICE)
+    saved = shade_counts()
+    out = {}
+    for want in ("params", "angles", "both"):
+        p = prm.T.contiguous().requires_grad_(want != "angles")
+        chans = {n: ang_vt[i].T.contiguous().requires_grad_(want != "params")
+                 for i, n in enumerate(names)}
+        angles = ShadingAngles(cos_rv=torch.zeros_like(y), **chans)     # R·V is not read
+        before = shade_counts()
+        pred = k0.shade(model, p, angles)
+        loss = 0.5 * torch.sum((pred - y) ** 2)
+        wanted = ([p] if want != "angles" else []) + (list(chans.values()) if want != "params" else [])
+        grads = torch.autograd.grad(loss, wanted)
+        torch.cuda.synchronize()
+        used = {k: n - before[k] for k, n in shade_counts().items()}
+        check(used == {"fwd": 1, "bwd_params": int(want != "angles"),
+                       "bwd_angles": int(want != "params")}, f"autograd ({want}) launched {used}")
+        ct = (pred.detach() - y).T.contiguous()
+        ref = []
+        if want != "angles":
+            ref.append(k0.shade_bwd_params_plain(model, ang_vt, prm, ct).T)
+        if want != "params":
+            ref.extend(x.T for x in k0.shade_bwd_angles_plain(model, ang_vt, prm, ct))
+        share = min(float(same(g, r).double().mean()) for g, r in zip(grads, ref))
+        err = max(float(torch.nan_to_num(g - r).abs().max()) for g, r in zip(grads, ref))
+        errs["bwd_params" if want == "params" else "bwd_angles"].append(err)
+        out[want] = dict(launches=used, share=share, max_abs_err=err, loss=float(loss.detach()))
+        log(f"shade autograd ({want}): launches {used}, gradients equal on {share:.6f}")
+        check(share == 1.0, f"shade's gradient ({want}) differs from the plain versions'")
+    k0.SHADE_LAUNCHES.update(saved)              # these launches are not the main path's
+    return out
+
+
+def serve_scene(rng: np.random.Generator, model: str):
+    """An icosphere of 81920 faces in front of a 1024 × 1024 camera, lit by
+    the 16-LED rig, with per-face parameters for three channels."""
+    verts, faces = icosphere(SERVE_SUBDIV, radius=30.0, center=(0.0, 150.0, 120.0))
+    mesh = TriangleMesh.from_arrays(verts, faces)
+    cam = Camera.look_at(eye=(0.0, 150.0, 320.0), target=(0.0, 150.0, 120.0), up=(0, 1, 0),
+                         f=SERVE_FOCAL, width=SERVE_SIZE, height=SERVE_SIZE)
+    lights = led_rig_positions()
+    scene = pscene.Scene(mesh=mesh, cameras=[cam] * len(lights), lights=lights,
+                         images=np.zeros((len(lights), SERVE_SIZE, SERVE_SIZE, 3), np.float32),
+                         name="icosphere")
+    params = np.stack([true_lm_params(rng, mesh.num_faces, model) for _ in range(CHANNELS)], 1)
+    return scene, params
+
+
+def serve_split(model, mesh, cam, params, faces, lights) -> dict:
+    """One image as ``shade_raster_map`` makes it, timed step by step on the
+    host clock (the device step ends in a synchronise): rasterize, gather the
+    covered pixels, upload + shade, copy back, scatter into the image."""
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    rm, raster_ms = clock(lambda: rasterize_mesh(cam, mesh.vertices, mesh.faces))
+    (cov, pts, nrm, p_px, valid), gather_ms = clock(
+        lambda: prender.gather_covered_pixels(mesh, rm, params, faces))
+
+    def on_device():
+        with torch.no_grad():
+            return prender.render_pixels(model, p_px, np.asarray(pts, np.float32),
+                                         np.asarray(nrm, np.float32), np.asarray(cam.position),
+                                         np.asarray(lights, np.float32))
+
+    shaded, device_ms = clock(on_device)
+    host, copy_ms = clock(lambda: shaded.cpu().numpy())
+
+    def scatter():
+        img = np.zeros((cam.height, cam.width, params.shape[1]), np.float32)
+        img[cov] = host * valid[:, None]
+        return img
+
+    _, scatter_ms = clock(scatter)
+    return dict(pixels=int(cov.sum()), lights=len(lights), rasterize_ms=raster_ms,
+                gather_ms=gather_ms, upload_and_shade_ms=device_ms, copy_back_ms=copy_ms,
+                scatter_ms=scatter_ms)
+
+
+def phase_serve(errs: dict) -> tuple[dict, dict, tuple]:
+    """The slice's main path, through the entry points a user calls:
+    ``relight`` and ``render_turntable`` (K2), then one gradient of a fit loss
+    through ``shade`` to parameters and angles at the shading batch (K2, K3,
+    K4). The counts are set to 0 just before and read just after."""
+    model = "cook_torrance"
+    rng = np.random.default_rng(31)
+    check(native.rasterizer_lib() is not None,
+          "the native rasterizer (csrc/rasterizer.cpp) did not build or load")
+    log("rasterizer: native (brdf_tpu_torch/csrc/rasterizer.cpp, g++)")
+    scene, params = serve_scene(rng, model)
+    faces = np.arange(scene.mesh.num_faces)
+    cov = scene.raster_map(0).coverage
+    n_px = int(cov.sum())
+    ang_vt, prm, _ = make_shade_case(rng, model, T_SHADE, V)
+    names = k0.SHADING_KERNELS[model].angle_names
+    y = torch.tensor(rng.uniform(0.0, 1.0, (T_SHADE, V)), dtype=torch.float32, device=DEVICE)
+
+    def gradient_step():
+        p = prm.T.contiguous().requires_grad_(True)
+        chans = {n: ang_vt[i].T.contiguous().requires_grad_(True) for i, n in enumerate(names)}
+        loss = 0.5 * torch.sum((k0.shade(model, p, ShadingAngles(cos_rv=None, **chans)) - y) ** 2)
+        return [loss.detach()] + list(torch.autograd.grad(loss, [p, *chans.values()]))
+
+    torch.cuda.synchronize()
+    reset_shade_counts()                         # the main path starts here
+    t0 = time.perf_counter()
+    relit = prender.relight(model, scene, params, faces, lights=scene.lights)
+    relight_first_s = time.perf_counter() - t0
+    after_relight = shade_counts()
+    t0 = time.perf_counter()
+    frames = prender.render_turntable(model, scene, params, faces, frames=TURNTABLE_FRAMES,
+                                      size=(TURNTABLE_SIZE, TURNTABLE_SIZE))
+    turntable_first_s = time.perf_counter() - t0
+    after_turntable = shade_counts()
+    grads = gradient_step()
+    torch.cuda.synchronize()
+    launches = shade_counts()                    # ... and ends here
+
+    check(after_relight == {"fwd": 1, "bwd_params": 0, "bwd_angles": 0},
+          f"relight launched {after_relight}: K2 once per render_pixels call")
+    check(after_turntable["fwd"] == 1 + TURNTABLE_FRAMES,
+          f"render_turntable launched K2 {after_turntable['fwd'] - 1} times for "
+          f"{TURNTABLE_FRAMES} frames")
+    check(launches == {"fwd": 2 + TURNTABLE_FRAMES, "bwd_params": 1, "bwd_angles": 1},
+          f"the gradient step launched {launches}")
+    check(relit.shape == (SERVE_SIZE, SERVE_SIZE, CHANNELS) and np.isfinite(relit).all(),
+          "relight: a finite (H, W, 3) image")
+    check(0.4 < cov.mean() < 0.6, f"the sphere covers {cov.mean():.3f} of the frame")
+    check((relit[~cov] == 0.0).all() and (relit[cov].max(-1) > 0).mean() > 0.9,
+          "relight: background black, the sphere lit")
+    check(frames.shape == (TURNTABLE_FRAMES, TURNTABLE_SIZE, TURNTABLE_SIZE, CHANNELS)
+          and np.isfinite(frames).all(), "turntable: finite (frames, H, W, 3)")
+    check(all((f.max(-1) > 0.01).mean() > 0.02 for f in frames), "turntable: every frame lit")
+    check(np.abs(frames[0] - frames[TURNTABLE_FRAMES // 2]).max() > 0.01,
+          "turntable: the viewpoint moves")
+
+    # the same calls through the plain versions, on the card
+    with plain_shading():
+        before = shade_counts()
+        relit_ref = prender.relight(model, scene, params, faces, lights=scene.lights)
+        frames_ref = prender.render_turntable(model, scene, params, faces, frames=TURNTABLE_FRAMES,
+                                              size=(TURNTABLE_SIZE, TURNTABLE_SIZE))
+        grads_ref = gradient_step()
+        torch.cuda.synchronize()
+        check(shade_counts() == before, "the plain stand-ins must not count as launches")
+    as_t = torch.from_numpy
+    shares = dict(
+        relight=float(same(as_t(relit), as_t(relit_ref)).double().mean()),
+        turntable=float(same(as_t(frames), as_t(frames_ref)).double().mean()),
+        loss=float(same(grads[0], grads_ref[0]).double().mean()),
+        grad_params=float(same(grads[1], grads_ref[1]).double().mean()),
+        grad_angles=min(float(same(g, r).double().mean()) for g, r in zip(grads[2:], grads_ref[2:])),
+    )
+    errs["fwd"].append(float(np.abs(relit - relit_ref).max()))
+    errs["fwd"].append(float(np.abs(frames - frames_ref).max()))
+    errs["bwd_params"].append(float(torch.nan_to_num(grads[1] - grads_ref[1]).abs().max()))
+    errs["bwd_angles"].append(max(float(torch.nan_to_num(g - r).abs().max())
+                                  for g, r in zip(grads[2:], grads_ref[2:])))
+    log(f"serve path vs plain versions: {shares}")
+    for key, share in shares.items():
+        check(share == 1.0, f"serve path, {key}: kernel path and plain path differ ({share})")
+    del grads, grads_ref
+
+    # engine="xla" (the eager lobe of models/brdf.py) on the relight call's inputs
+    _, pts, nrm, p_px, _ = prender.gather_covered_pixels(scene.mesh, scene.raster_map(0), params, faces)
+    args = (p_px, np.asarray(pts, np.float32), np.asarray(nrm, np.float32),
+            np.asarray(scene.cameras[0].position), np.asarray(scene.lights, np.float32))
+    saved = shade_counts()
+    with torch.no_grad():
+        by_kernel = prender.render_pixels(model, *args)
+        by_lobe = prender.render_pixels(model, *args, engine="xla")
+    torch.cuda.synchronize()
+    off = (by_kernel - by_lobe).abs() - (XLA_ATOL + XLA_RTOL * by_lobe.abs())
+    xla = dict(max_abs_diff=float((by_kernel - by_lobe).abs().max()),
+               share_within=float((off <= 0).double().mean()), rtol=XLA_RTOL, atol=XLA_ATOL)
+    log(f"engine='xla' against K2 on {n_px} pixels x {CHANNELS} x {len(scene.lights)} lights: {xla}")
+    check(xla["share_within"] == 1.0, f"engine='xla' and K2 disagree: {xla}")
+    del by_kernel, by_lobe
+
+    # wall time, warm: relight (raster map cached), one turntable frame, and its steps
+    def warm(fn, reps=3):
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return dict(wall_ms_median=float(np.median(walls)), wall_ms=walls)
+
+    cam_t = prender.orbit_cameras(scene.mesh, frames=TURNTABLE_FRAMES,
+                                  size=(TURNTABLE_SIZE, TURNTABLE_SIZE))[0]
+    headlight = np.asarray(cam_t.position, np.float32)[None]
+
+    def one_frame():
+        rm = rasterize_mesh(cam_t, scene.mesh.vertices, scene.mesh.faces)
+        return prender.shade_raster_map(model, scene.mesh, rm, cam_t, params, faces, headlight)
+
+    wall = dict(
+        relight=dict(warm(lambda: prender.relight(model, scene, params, faces, lights=scene.lights)),
+                     first_wall_s=relight_first_s,
+                     steps=serve_split(model, scene.mesh, scene.cameras[0], params, faces, scene.lights)),
+        turntable_frame=dict(warm(one_frame), first_wall_s_all_frames=turntable_first_s,
+                             steps=serve_split(model, scene.mesh, cam_t, params, faces, headlight)),
+    )
+    profile = warm_profile(lambda: prender.render_pixels(model, *args), "shade_fwd_kernel")
+    k0.SHADE_LAUNCHES.update(saved)              # timing launches are not the main path's
+    log(f"relight warm {wall['relight']['wall_ms_median']:.1f} ms {wall['relight']['steps']}; "
+        f"turntable frame warm {wall['turntable_frame']['wall_ms_median']:.1f} ms "
+        f"{wall['turntable_frame']['steps']}")
+    out = dict(model=model, faces=int(scene.mesh.num_faces), image=[SERVE_SIZE, SERVE_SIZE],
+               covered_pixels=n_px, coverage=float(cov.mean()), lights=len(scene.lights),
+               rasterizer="native", launches=launches, vs_plain=shares, engine_xla=xla,
+               wall=wall, render_pixels_warm=profile,
+               gradient_step=dict(texels=T_SHADE, views=V))
+    relight_shape = (model, n_px * CHANNELS, len(scene.lights))
+    return launches, out, relight_shape
+
+
+def phase_closed_loop() -> dict:
+    """scene → images → problem → fit → image on the card, with the bars of
+    tests/test_pipeline.py: the serve scene's 16 LED views rendered from known
+    per-face blinn_phong parameters with flat shading, fitted back per face
+    (default engine, K5) and per pixel (stride 2), re-rendered from the fit."""
+    model = "blinn_phong"
+    rng = np.random.default_rng(41)
+    scene, _ = serve_scene(rng, model)
+    t = scene.mesh.num_faces
+    true_p = np.stack([rng.uniform(0.2, 0.8, (t, 3)), rng.uniform(0.2, 0.9, (t, 3)),
+                       rng.uniform(3.0, 20.0, (t, 3))], axis=-1).astype(np.float32)
+    faces = np.arange(t)
+    saved_shade, saved_k5 = shade_counts(), k5.LAUNCHES
+    t0 = time.perf_counter()
+    scene.images = np.stack([
+        prender.render_image(model, scene, true_p, faces, view=vi, use_vertex_normals=False)
+        for vi in range(scene.num_views)]).astype(np.float32)
+    render_s = time.perf_counter() - t0
+    cov = scene.raster_map(0).coverage
+    out = dict(model=model, views=scene.num_views, render_views_s=render_s)
+
+    t0 = time.perf_counter()
+    prob = build_face_problem(scene)
+    build_s = time.perf_counter() - t0
+    before = k5.LAUNCHES
+    t0 = time.perf_counter()
+    rep = fit_per_texel(prob, model)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    img = prender.render_image(model, scene, rep.params.cpu().numpy(), rep.face_ids, view=0,
+                               use_vertex_normals=False)
+    rms = float(np.sqrt(np.mean((img[cov] - scene.images[0][cov]) ** 2)))
+    seen = prob.weights.sum(-1) >= 8
+    kd_err = np.abs(rep.params.cpu().numpy()[seen, :, 0] - true_p[prob.face_ids][seen, :, 0])
+    out["face"] = dict(texels=len(prob.face_ids), build_s=build_s, fit_s=fit_s,
+                       k5_launches=k5.LAUNCHES - before, view0_rms=rms,
+                       converged_fraction=rep.converged_fraction(),
+                       kd_median_abs_err=float(np.median(kd_err)),
+                       chi2_median=float(rep.result.chi2.median()))
+    log(f"closed loop, per face: {out['face']}")
+    check(out["face"]["k5_launches"] >= 1, "the per-face fit never launched K5")
+    check(np.isfinite(img).all() and rms < 0.02, f"per-face re-render RMS {rms}")
+    check(out["face"]["converged_fraction"] > 0.97, out["face"])
+    check(out["face"]["kd_median_abs_err"] < 0.02, out["face"])
+
+    t0 = time.perf_counter()
+    prob = build_pixel_problem(scene, stride=2, smooth_normals=False)     # face normals, as rendered
+    build_s = time.perf_counter() - t0
+    before = k5.LAUNCHES
+    t0 = time.perf_counter()
+    rep = fit_per_texel(prob, model)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    img = prender.render_pixel_fit(model, scene, rep.params.cpu().numpy(), prob.pixels, prob.points,
+                                   prob.normals)
+    ys, xs = prob.pixels[:, 1], prob.pixels[:, 0]
+    rms = float(np.sqrt(np.mean((img[ys, xs] - scene.images[0][ys, xs]) ** 2)))
+    out["pixel"] = dict(texels=len(prob.face_ids), stride=2, build_s=build_s, fit_s=fit_s,
+                        k5_launches=k5.LAUNCHES - before, view0_rms=rms,
+                        converged_fraction=rep.converged_fraction(),
+                        chi2_median=float(rep.result.chi2.median()))
+    log(f"closed loop, per pixel: {out['pixel']}")
+    check(np.isfinite(img).all() and rms < 0.02, f"per-pixel re-render RMS {rms}")
+    check(out["pixel"]["converged_fraction"] > 0.97, out["pixel"])
+    out["k2_launches"] = shade_counts()["fwd"] - saved_shade["fwd"]
+    check(out["k2_launches"] == scene.num_views + 2, f"the closed loop launched K2 {out['k2_launches']} times")
+    k0.SHADE_LAUNCHES.update(saved_shade)        # these launches are not the main path's
+    k5.LAUNCHES = saved_k5
+    return out
+
+
+def phase_shade_timing(relight_shape) -> dict:
+    """K2, K3 and K4 per launch (CUDA events; 20 back-to-back launches, median
+    of 3 runs) and their plain versions (2 launches) on the shading batch
+    (cook_torrance, 1048576 × 16) and on the relight call's own shape, each
+    with its bound: bytes at 3.35 TB/s against operations at 67 TFLOP/s."""
+    rng = np.random.default_rng(51)
+    saved = shade_counts()
+    res = {}
+    for key, (model, t, v) in (("shading_batch", ("cook_torrance", T_SHADE, V)),
+                               ("relight_call", relight_shape)):
+        ang, prm, ct = make_shade_case(rng, model, t, v)
+        nbytes, ops = shade_bytes(model, t, v), shade_operations(model, t, v)
+        res[key] = dict(model=model, texels=t, views=v)
+        for kernel in SHADE_KERNELS:
+            ms = cuda_ms(lambda: run_shade(kernel, model, ang, prm, ct), reps=20)
+            plain_ms = cuda_ms(lambda: run_shade(kernel, model, ang, prm, ct, plain=True), reps=2)
+            bound = {"bytes": nbytes[kernel] / HBM_BYTES_PER_S * 1e3,
+                     "operations": ops[kernel] / FP32_OPS_PER_S * 1e3}
+            by = max(bound, key=bound.get)
+            res[key][kernel] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes[kernel],
+                                    operations=ops[kernel], bound_ms=bound[by], bound_by=by,
+                                    gbytes_per_s=nbytes[kernel] / (ms * 1e-3) / 1e9)
+        log(f"K2-K4 timing {key}: {res[key]}")
+        del ang, prm, ct
+    k0.SHADE_LAUNCHES.update(saved)              # timing launches are not the main path's
+    return res
+
+
 def ptxas_numbers() -> dict:
     """What the assembler said of each kernel built by this run."""
     return {name: _build.ptxas_report(text) for name, text in _build.BUILD_LOGS.items()}
@@ -870,6 +1350,24 @@ def main() -> int:
     lm_timing = phase_lm_timing(lm_problems, gates_row)
     lm_breakdown = phase_breakdown(lm_problems, LM_MAIN_PATH, _lm_fit, "lm_kernel")
     lap("LM timing and breakdown")
+    del lm_problems, gates_row
+
+    # K2-K4, the serve path and the closed loop, with a raster-map cache of
+    # this run's own that goes when the run ends
+    errs_shade: dict = {kernel: [] for kernel in SHADE_KERNELS}
+    shade_parity = phase_shade_parity(errs_shade)
+    shade_autograd = phase_shade_autograd(errs_shade)
+    lap("K2-K4 parity and autograd")
+    with tempfile.TemporaryDirectory() as cache_dir, \
+            mock.patch.dict(os.environ, {pscene.CACHE_DIR_ENV: cache_dir}):
+        shade_launches, serve, relight_shape = phase_serve(errs_shade)
+        check(all(n > 0 for n in shade_launches.values()),
+              f"the serve path never launched one of K2-K4: {shade_launches}")
+        lap("serve path")
+        closed_loop = phase_closed_loop()
+        lap("closed loop")
+    shade_timing = phase_shade_timing(relight_shape)
+    lap("K2-K4 timing")
 
     numbers = {
         "numbers": {
@@ -884,7 +1382,14 @@ def main() -> int:
             "lm_general_row": dict(lm_timing["lm-general-row"], **lm_gates),
             "main_path_calls": {k: v for k, v in lm_timing.items() if k != "lm-general-row"},
             "main_path": lm_main_path, "main_path_warm": lm_breakdown, "chunked": chunked,
-            "ptxas": ptxas_numbers(), "seconds": time.perf_counter() - t_start,
+            "ptxas": {k: v for k, v in ptxas_numbers().items() if k != "shade"},
+        },
+        "numbers_render": {
+            "card": card, "kernel": "K2, K3, K4 shading forward and backward (csrc/shade.cu)",
+            "parity": shade_parity, "autograd": shade_autograd, "serve_path": serve,
+            "closed_loop": closed_loop, "timing": shade_timing,
+            "ptxas": {"shade": ptxas_numbers().get("shade")},
+            "seconds": time.perf_counter() - t_start,
         },
     }
     for key, value in numbers.items():
@@ -896,14 +1401,23 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke_numbers.json"), "w") as fh:
         json.dump(numbers, fh, indent=1)
     main_t, k0_t, k5_t = timing["main"], k0_cases["timing"], lm_timing["lm-blinn"]
+
+    def shade_entry(name, kernel, replaces, timed):
+        # K2 as the relight call gives it, K3 and K4 as the gradient step does
+        return {"name": name, "route": "cuda", "source": "brdf_tpu_torch/csrc/shade.cu",
+                "replaces": replaces, "launches": shade_launches[kernel],
+                "max_abs_err": max(errs_shade[kernel]), "ms": timed[kernel]["ms"],
+                "plain_ms": timed[kernel]["plain_ms"], "bound_ms": timed[kernel]["bound_ms"],
+                "bound_by": timed[kernel]["bound_by"], "library_ms": None}
+
     print(json.dumps({"kernels": [{
-        # device functions inlined into K1 and K5: they run once per launch of
-        # either; timed and compared through csrc/lobes_eval.cu (ward_aniso)
+        # device functions inlined into K1-K5: they run once per launch of any
+        # of them; timed and compared through csrc/lobes_eval.cu (ward_aniso)
         "name": "lobes_k0",
         "route": "cuda",
         "source": "brdf_tpu_torch/csrc/lobes.cuh",
         "replaces": "brdf_tpu/ops/shading_pallas.py:495",
-        "launches": launches + lm_launches,
+        "launches": launches + lm_launches + sum(shade_launches.values()),
         "max_abs_err": max(errs_k0),
         "ms": k0_t["ms"],
         "plain_ms": k0_t["plain_ms"],
@@ -922,7 +1436,14 @@ def main() -> int:
         "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"],
         "library_ms": None,
-    }, {
+    },
+        shade_entry("shade_fwd_k2", "fwd", "brdf_tpu/ops/shading_pallas.py:531",
+                    shade_timing["relight_call"]),
+        shade_entry("shade_bwd_params_k3", "bwd_params", "brdf_tpu/ops/shading_pallas.py:537",
+                    shade_timing["shading_batch"]),
+        shade_entry("shade_bwd_angles_k4", "bwd_angles", "brdf_tpu/ops/shading_pallas.py:553",
+                    shade_timing["shading_batch"]),
+    {
         "name": "lm_k5",
         "route": "cuda",
         "source": "brdf_tpu_torch/csrc/lm.cu",

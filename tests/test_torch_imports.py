@@ -44,6 +44,12 @@ def test_port_files_exist():
     # the modules of the LM path are scanned with the rest
     assert {"brdf_tpu_torch/ops/lm.py", "brdf_tpu_torch/models/normalmap.py",
             "brdf_tpu_torch/utils/checkpoint.py", "brdf_tpu_torch/utils/__init__.py"} <= names
+    # ... and those of the render path and its host modules
+    assert {"brdf_tpu_torch/io/obj.py", "brdf_tpu_torch/io/cal.py", "brdf_tpu_torch/io/images.py",
+            "brdf_tpu_torch/geometry/mesh.py", "brdf_tpu_torch/geometry/camera.py",
+            "brdf_tpu_torch/geometry/rasterize.py", "brdf_tpu_torch/geometry/texel.py",
+            "brdf_tpu_torch/native.py", "brdf_tpu_torch/pipeline/scene.py",
+            "brdf_tpu_torch/pipeline/render.py"} <= names
 
 
 def test_new_modules_import_without_a_gpu_toolchain():
@@ -59,6 +65,54 @@ def test_new_modules_import_without_a_gpu_toolchain():
     assert "triton" not in sys.modules
     assert set(_build.SOURCES) >= {"varpro", "lm"} and lm.LAUNCHES == 0
     assert not _build.BUILD_LOGS
+
+
+def test_render_path_modules_import_without_building_or_loading():
+    """A fresh interpreter imports every module of the render path: no
+    ``jax``, no JAX package, no PIL (the image reader imports it when it
+    reads), no shared library loaded, nothing compiled, no launch counted."""
+    import subprocess
+    import sys
+
+    code = """
+import sys
+import brdf_tpu_torch
+for mod in ("io", "io.obj", "io.cal", "io.images", "geometry", "geometry.mesh", "geometry.camera",
+            "geometry.rasterize", "geometry.texel", "native", "pipeline", "pipeline.scene",
+            "pipeline.render", "pipeline.fit", "ops.shading", "convert"):
+    __import__("brdf_tpu_torch." + mod)
+from brdf_tpu_torch import native
+from brdf_tpu_torch.ops import _build, shading
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "brdf_tpu", "PIL", "triton")]
+assert not bad, bad
+assert "shade" in _build.SOURCES and not _build.BUILD_LOGS
+assert _build.load.cache_info().currsize == 0 and native.load.cache_info().currsize == 0
+assert shading.SHADE_LAUNCHES == {"fwd": 0, "bwd_params": 0, "bwd_angles": 0}
+print("clean")
+"""
+    env = {k: v for k, v in __import__("os").environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("clean"), out.stderr[-2000:]
+
+
+def test_entry_points_of_the_render_path_need_a_device_or_say_so():
+    """Every entry point added with the render path goes through
+    ``resolve_device``: with no card and no ``device=`` it raises."""
+    import numpy as np
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device would run")
+    from brdf_tpu_torch.pipeline import fit, render
+
+    z = np.zeros((2, 3), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render.render_pixels("lambert", np.zeros((2, 3, 1), np.float32), z, z, z[0], z)
+    prob = fit.TexelProblem(angles=None, intensity=np.zeros((2, 4, 3)), weights=np.ones((2, 4)),
+                            face_ids=np.arange(2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit.fit_quality_metrics(prob, np.zeros((2, 3, 1)), "lambert")
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
