@@ -5,13 +5,15 @@ by the ``tests/test_torch_*.py`` suite. It mirrors ``brdf_tpu``'s layout so
 that every module's counterpart is found by the same path:
 
 - ``models``   — shading angles and the ten analytic lobes (torch autograd).
-- ``solver``   — grid init, robust IRLS weights, the unfused VarPro tier and
-  the eager box-constrained LM (:func:`levmar_bc`).
+- ``solver``   — grid init, robust IRLS weights, the unfused VarPro tiers
+  (per channel and joint) and the eager box-constrained LM (:func:`levmar_bc`).
 - ``ops``      — hand-written CUDA kernels for Hopper (``csrc/``), each with
-  its plain PyTorch version beside it and a launch counter.
+  its plain PyTorch version beside it and a launch counter, and the eager LM
+  loop around the normal-equation kernels.
 - ``parallel`` — :func:`fit_texels`, the single-GPU fit program
   (init → fit → IRLS rounds).
-- ``pipeline`` — :func:`fit_per_texel`, the per-texel × channel driver.
+- ``pipeline`` — :func:`fit_per_texel`, the per-texel × channel fit,
+  ``fit_joint_normalmap``, the scene → problem builders and the renderers.
 - ``utils``    — checkpoint / resume of a chunked fit (the JAX package's format).
 - ``convert``  — numpy ↔ port state, so both packages start from one state.
 

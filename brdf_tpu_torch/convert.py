@@ -4,8 +4,11 @@ The system has no network weights. Its state is the problem arrays
 (``TexelProblem`` and its ``ShadingAngles``/``ShadingGeometry``, with all ten
 angle channels when the tangent-frame ones are filled), parameter starts
 ``p0``, the warm ``(μ, ν, stop)`` resume state, fit results
-(``LMResult``/``PallasFitResult``/``VarProResult``) and the box (plain float
-tuples, which need no conversion).
+(``LMResult``/``PallasFitResult``/``VarProResult``/``JointVarProResult``; a
+joint normal-map fit is an ``LMResult`` with nine or eleven parameter
+columns), the joint layout ``JointSpec`` (a name, two counts and the box:
+no arrays, rebuilt field by field) and the box (plain float tuples, which
+need no conversion).
 
 :func:`from_numpy` takes any of these as numpy arrays — or as an object of
 the JAX package's type with the same name, whose leaves ``np.asarray``
@@ -33,14 +36,17 @@ from brdf_tpu_torch.geometry.mesh import TriangleMesh
 from brdf_tpu_torch.geometry.rasterize import RasterMap
 from brdf_tpu_torch.geometry.texel import Texelization
 from brdf_tpu_torch.models.brdf import ShadingAngles, ShadingGeometry
+from brdf_tpu_torch.models.normalmap import JointSpec
 from brdf_tpu_torch.ops.lm import PallasFitResult
 from brdf_tpu_torch.pipeline.fit import TexelProblem
 from brdf_tpu_torch.pipeline.scene import Scene
 from brdf_tpu_torch.solver.lm import LMResult
 from brdf_tpu_torch.solver.varpro import VarProResult
+from brdf_tpu_torch.solver.varpro_joint import JointVarProResult
 
 _TYPES = {cls.__name__: cls for cls in
-          (ShadingAngles, ShadingGeometry, TexelProblem, LMResult, PallasFitResult, VarProResult)}
+          (ShadingAngles, ShadingGeometry, TexelProblem, LMResult, PallasFitResult, VarProResult,
+           JointVarProResult)}
 _HOST_FIELDS = {"face_ids", "pixels", "points", "normals"}
 _HOST_TYPES = {cls.__name__: cls for cls in (TriangleMesh, Camera, RasterMap, Texelization)}
 
@@ -65,6 +71,9 @@ def from_numpy(obj, device="cpu"):
     name = type(obj).__name__
     if name == "Scene" or name in _HOST_TYPES:
         return _host(obj)
+    if name == "JointSpec":
+        return JointSpec(str(obj.base_model), int(obj.n_params), tuple(float(x) for x in obj.lower),
+                         tuple(float(x) for x in obj.upper), int(obj.n_shape))
     if hasattr(obj, "_fields"):
         if name not in _TYPES:
             raise TypeError(f"no port type for {name}")

@@ -43,7 +43,8 @@ from brdf_tpu_torch.solver.lm import LMOptions, StopReason
 # Every registry lobe fits the fused path (m ≤ MAX_PARAMS); kept as the
 # membership check parallel/fit.py's engine="auto" keys off.
 PALLAS_MODELS: dict[str, ShadingKernelSpec] = dict(SHADING_KERNELS)
-MAX_PARAMS = 5
+MAX_PARAMS = 5          # the fused whole-solve kernel (K5)
+MAX_SOLVE_PARAMS = 9    # the unrolled-Cholesky damped solve (the m=9 joint fit included)
 _TINY = 1e-30
 # Shared memory a block may use on Hopper (sm_90), opt-in dynamic maximum.
 SMEM_LIMIT = 232448
@@ -90,6 +91,12 @@ def config(model: str, opts: LMOptions, lower, upper) -> LMConfig:
     m = PALLAS_MODELS[model].n_params
     if len(lower) != m or len(upper) != m:
         raise ValueError(f"{model} has {m} params; got bounds {lower}/{upper}")
+    return solve_config(model, opts, lower, upper)
+
+
+def solve_config(model: str, opts: LMOptions, lower, upper) -> LMConfig:
+    """:func:`config` without the check that the box has the lobe's size (the
+    joint fit's box has nine entries around a three-parameter lobe)."""
     if opts.damping not in ("add", "marquardt"):
         raise ValueError(f"unknown damping {opts.damping!r}")
     with np.errstate(over="ignore"):
@@ -153,7 +160,7 @@ def _solve_damped(af: dict, gf: list, m: int):
             -(c01 * gf[0] + c11 * gf[1] + c12 * gf[2]) * inv,
             -(c02 * gf[0] + c12 * gf[1] + c22 * gf[2]) * inv,
         ], ok
-    if m > MAX_PARAMS:
+    if m > MAX_SOLVE_PARAMS:
         raise ValueError(f"unsupported parameter count m={m}")
     # Cholesky A = L Lᵀ, unrolled; a pivot at or below _TINY flags the lane.
     # Every sum starts from 0 and runs upward, as the kernel's does.
@@ -303,21 +310,28 @@ def lm_rows_plain(cfg: LMConfig, ang, y, w, p0_rows) -> torch.Tensor:
     return torch.cat(rows)
 
 
+def fits_fused(n_angles: int, v: int) -> bool:
+    """Whether the fused kernel can stage ``v`` views of 32 texels in shared
+    memory (V ≤ 165 for a nine-channel lobe, V ≤ 363 for cook_torrance,
+    V ≤ 454 for blinn_phong)."""
+    return (n_angles + 2) * v * 32 * 4 <= SMEM_LIMIT
+
+
 def block_size(n_angles: int, v: int) -> tuple[int, int]:
     """(texels per block, shared-memory bytes): a block stages ``(A + 2)·V``
     floats per texel (angles, y, w); it shrinks in steps of 32 texels until
-    that fits, and raises when even 32 do not. There is no fallback."""
+    that fits, and raises when even 32 do not: such a view count belongs to
+    the chunked tier, which ``parallel/fit.py`` then chooses by itself."""
     tb = 128       # the kernel's __launch_bounds__
     while tb >= 32:
         smem = (n_angles + 2) * v * tb * 4
         if smem <= SMEM_LIMIT:
             return tb, smem
         tb -= 32
-    raise NotImplementedError(
+    raise ValueError(
         f"V={v} views do not fit the fused LM kernel's shared memory "
-        f"({(n_angles + 2) * v * 32 * 4} bytes for 32 texels > {SMEM_LIMIT}); the chunked "
-        "view tier that streams them is ROADMAP.md Queue B item 5 (kernel K6, "
-        "lm_fit_pallas_chunked)"
+        f"({(n_angles + 2) * v * 32 * 4} bytes for 32 texels > {SMEM_LIMIT}); "
+        "use ops/ne.py::lm_fit_chunked, which streams the views"
     )
 
 

@@ -1,0 +1,596 @@
+"""Chunked LM tier: the normal-equation kernels K6 and K7, their plain PyTorch
+versions and the eager LM control loop they share.
+
+K6 (``csrc/ne.cu``) replaces ``brdf_tpu/ops/lm_pallas.py::_ne_kernel`` and K7
+(``csrc/joint_ne.cu``) ``::_joint_ne_kernel``. Both accumulate per-texel
+normal equations over the view axis — χ², the upper triangle of JᵀW²J and
+JᵀW²e — in the modes ``"chi2"``, ``"grad"`` and ``"full"``; K6 for a lobe on
+fixed angles (any of the ten, m = 1..5), K7 for the m = 9 joint normal-map
+model, whose cosines depend on the fitted normal offset and are computed in
+the kernel from the light and eye vectors. :func:`ne_rows_plain` and
+:func:`joint_ne_rows_plain` mirror them operation for operation on
+views-major tensors (the CPU path, and what the kernels are held against on
+the card); :func:`ne_rows` and :func:`joint_ne_rows` launch the kernel for
+CUDA tensors (counting the launch in :data:`LAUNCHES`) and run the plain
+version for CPU tensors. Neither stands in for the other.
+
+On the TPU the view axis is cut into chunks that fit the fast memory and the
+texel axis into blocks; on the GPU one thread owns a texel and walks all its
+views, so ``view_block`` and ``block_t`` are gone from every signature here,
+nothing is padded, and the view count is unbounded by construction. There is
+no ``interpret`` either, and ``axis_name`` (a view axis sharded over devices)
+raises: multi-GPU is ROADMAP.md Queue A items 5 and 11.
+
+:func:`chunked_lm_loop` is ``_chunked_lm_loop``: the box-projected LM of
+``ops/lm.py`` (one solve per iteration, Kanzow μ init, active-set freeze,
+Nielsen μ/ν, the levmar stop codes, the warm ``(μ, ν, stop)`` resume) written
+as eager PyTorch on ``(T,)`` lanes around two kernel calls per iteration —
+the normal equations at the current point and χ² at the trial point. Its
+``while any(active)`` is one host synchronisation per iteration
+(:data:`LOOP_SYNCS` counts them). On top of it sit the public functions with
+the JAX package's contracts: :func:`lm_fit_chunked`
+(``lm_fit_pallas_chunked``), :func:`shading_value_and_grad`,
+:func:`lm_fit_joint_chunked` and :func:`joint_value_and_grad`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from brdf_tpu_torch.models.brdf import ShadingAngles, ShadingGeometry
+from brdf_tpu_torch.models.normalmap import tangent_basis
+from brdf_tpu_torch.ops.lm import (
+    _DEFAULT_OPTS,
+    _TINY,
+    PALLAS_MODELS,
+    LMConfig,
+    PallasFitResult,
+    _solve_damped,
+    config,
+    solve_config,
+)
+from brdf_tpu_torch.ops.shading import SHADING_KERNELS
+from brdf_tpu_torch.solver.lm import LMOptions, StopReason
+
+_EPS = 1e-12
+MODES = {"chi2": 0, "grad": 1, "full": 2}
+JOINT_M = 9
+# base lobes of the joint kernel: the four with (kd, ks, shape) parameters
+JOINT_MODELS = tuple(n for n, s in SHADING_KERNELS.items() if s.n_params == 3)
+# Kernel launches since the counts were last reset: K6 ("ne"), K7 ("joint_ne").
+LAUNCHES = {"ne": 0, "joint_ne": 0}
+# Host synchronisations made by chunked_lm_loop's ``any(active)`` test.
+LOOP_SYNCS = 0
+
+_JOINT_OPTS = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=40)
+
+
+def ne_rows_count(m: int, mode: str) -> int:
+    """Rows of the output: χ², then in ``full`` the m(m+1)/2 entries of JᵀJ,
+    then in ``grad`` and ``full`` the m of Jᵀe."""
+    return {"chi2": 1, "grad": 1 + m, "full": 1 + m * (m + 1) // 2 + m}[mode]
+
+
+def _view_sum(terms: list[torch.Tensor]) -> torch.Tensor:
+    """``Σ_v Σ_c terms[c][v]``: views outside, the listed tensors inside, left
+    to right from zero — the order of the kernels' per-thread sums."""
+    acc = torch.zeros_like(terms[0][0])
+    for v in range(terms[0].shape[0]):
+        for x in terms:
+            acc = acc + x[v]
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# K6: a lobe on fixed angles
+# ---------------------------------------------------------------------------
+
+
+def ne_rows_plain(model: str, mode: str, ang, y, w, p_rows) -> torch.Tensor:
+    """K6's plain version: ``ang (A, V, T)``, ``y (V, T)``, ``w (V, T)`` or
+    ``None``, ``p_rows (m, T)`` → ``(R, T)`` rows: χ², then (j, k) for j ≤ k,
+    then g (see :func:`ne_rows_count`)."""
+    spec = SHADING_KERNELS[model]
+    m = spec.n_params
+    i_val, d, _ = spec.eval(tuple(ang), tuple(p_rows[j:j + 1] for j in range(m)))
+    if w is not None:
+        r = (i_val - y) * w
+        rw = r * w
+        w2 = w * w
+    else:
+        r = i_val - y
+        rw = r
+    rows = [_view_sum([r * r])]
+    if mode == "full":
+        for j in range(m):
+            for k in range(j, m):
+                dd = d[j] * d[k]
+                rows.append(_view_sum([dd * w2 if w is not None else dd]))
+    if mode in ("full", "grad"):
+        rows.extend(_view_sum([d[j] * rw]) for j in range(m))
+    return torch.stack(rows)
+
+
+def _check_cuda(name: str, first: torch.Tensor, *rest: torch.Tensor) -> None:
+    for x in (first, *rest):
+        if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} takes contiguous float32 CUDA tensors")
+        if x.device != first.device:
+            raise ValueError(f"{name}'s inputs must lie on one device")
+
+
+@functools.lru_cache(maxsize=None)
+def _ne_entry():
+    from brdf_tpu_torch.ops import _build
+
+    fn = _build.load("ne").brdf_ne_rows
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [i, i, p, p, p, p, p, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ne_rows_cuda(model: str, mode: str, ang, y, w, p_rows) -> torch.Tensor:
+    """Launch K6 on views-major CUDA inputs → the ``(R, T)`` rows. ``w=None``
+    takes the variant that reads no weights."""
+    spec = SHADING_KERNELS[model]
+    m = spec.n_params
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; choose from {tuple(MODES)}")
+    _check_cuda("K6", ang, y, p_rows, *(() if w is None else (w,)))
+    if ang.ndim != 3 or ang.shape[0] != len(spec.angle_names):
+        raise ValueError(f"K6: {model} reads {len(spec.angle_names)} angle channels (A, V, T), "
+                         f"got {tuple(ang.shape)}")
+    _, v, t = ang.shape
+    if y.shape != (v, t) or p_rows.shape != (m, t) or (w is not None and w.shape != (v, t)):
+        raise ValueError(f"K6 shapes: ang {tuple(ang.shape)}, y {tuple(y.shape)}, "
+                         f"w {None if w is None else tuple(w.shape)}, p {tuple(p_rows.shape)}")
+    if t >= 2**31:
+        raise ValueError(f"K6 covers fewer than 2^31 texels a launch, got T={t}")
+    out = torch.empty((ne_rows_count(m, mode), t), dtype=torch.float32, device=ang.device)
+    if t == 0:
+        return out
+    if v == 0:
+        return out.zero_()
+    stream = torch.cuda.current_stream(ang.device).cuda_stream
+    with torch.cuda.device(ang.device):
+        err = _ne_entry()(spec.lobe_id, MODES[mode], ang.data_ptr(), y.data_ptr(),
+                          None if w is None else w.data_ptr(), p_rows.data_ptr(),
+                          out.data_ptr(), t, v, stream)
+    if err != 0:
+        raise RuntimeError(f"K6 (csrc/ne.cu) launch failed with cudaError {err}")
+    LAUNCHES["ne"] += 1
+    return out
+
+
+def ne_rows(model: str, mode: str, ang, y, w, p_rows) -> torch.Tensor:
+    """K6 for CUDA tensors, its plain version for CPU tensors."""
+    if ang.is_cuda:
+        return ne_rows_cuda(model, mode, ang, y, w, p_rows)
+    if ang.device.type == "cpu":
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; choose from {tuple(MODES)}")
+        return ne_rows_plain(model, mode, ang, y, w, p_rows)
+    raise ValueError(f"the normal-equation kernels run on cuda or cpu, not {ang.device}")
+
+
+# ---------------------------------------------------------------------------
+# K7: the joint normal-map model
+# ---------------------------------------------------------------------------
+
+
+def _dot3(x, z):
+    return x[0] * z[0] + x[1] * z[1] + x[2] * z[2]
+
+
+def _inv_norm(x):
+    """``1 / sqrt(max(x·x, eps))``, as the kernel writes it."""
+    return torch.reciprocal(torch.sqrt(torch.clamp(_dot3(x, x), min=_EPS)))
+
+
+def joint_ne_rows_plain(base_model: str, mode: str, lv, y, w, p_rows, frame) -> torch.Tensor:
+    """K7's plain version: ``lv (6, V, T)`` light then eye unit vectors,
+    ``y``/``w (3, V, T)`` per channel, ``p_rows (9, T)``, ``frame (9, T)`` =
+    (n, t, b) → ``(R, T)`` rows of the m = 9 normal equations, R = 1, 10, 55.
+    The 12 structurally zero entries of the 45 are zeros."""
+    spec = SHADING_KERNELS[base_model]
+    m = JOINT_M
+    p = [p_rows[j:j + 1] for j in range(m)]
+    n3 = [frame[i:i + 1] for i in range(3)]
+    t3 = [frame[3 + i:4 + i] for i in range(3)]
+    b3 = [frame[6 + i:7 + i] for i in range(3)]
+
+    # perturbed unit normal and its offset partials, per texel (1, T)
+    u = [n3[i] + p[7] * t3[i] + p[8] * b3[i] for i in range(3)]
+    inv_ell = _inv_norm(u)
+    npn = [x * inv_ell for x in u]
+    ndt = _dot3(npn, t3)
+    ndb = _dot3(npn, b3)
+    dn_du = [(t3[i] - npn[i] * ndt) * inv_ell for i in range(3)]
+    dn_dv = [(b3[i] - npn[i] * ndb) * inv_ell for i in range(3)]
+
+    ell = [lv[i] for i in range(3)]
+    eye = [lv[3 + i] for i in range(3)]
+
+    def dots(x):
+        return _dot3(x, npn), _dot3(x, dn_du), _dot3(x, dn_dv)
+
+    names = spec.angle_names
+    angs = {"cos_ln": dots(ell)}
+    cl, cl_du, cl_dv = angs["cos_ln"]
+    if "cos_nh" in names:
+        s = [ell[i] + eye[i] for i in range(3)]
+        inv_s = _inv_norm(s)
+        angs["cos_nh"] = dots([x * inv_s for x in s])
+    if "cos_vn" in names or "cos_rv" in names:
+        angs["cos_vn"] = dots(eye)
+        cvn, cvn_du, cvn_dv = angs["cos_vn"]
+    if "cos_rv" in names:
+        # R·V = 2 (N·L)(N·V) − L·V; L·V does not depend on the normal
+        angs["cos_rv"] = (2.0 * cl * cvn - _dot3(ell, eye),
+                          2.0 * (cl_du * cvn + cl * cvn_du),
+                          2.0 * (cl_dv * cvn + cl * cvn_dv))
+    ang_vals = tuple(angs[nm][0] for nm in names)
+    ang_dus = [angs[nm][1] for nm in names]
+    ang_dvs = [angs[nm][2] for nm in names]
+
+    chi2_terms = []
+    g_terms: dict[int, list] = {}
+    a_terms: dict[tuple, list] = {}
+    for c in range(3):
+        i_val, d_par, d_ang = spec.eval(ang_vals, (p[c], p[3 + c], p[6]))
+        r = (i_val - y[c]) * w[c]
+        chi2_terms.append(r * r)
+        if mode == "chi2":
+            continue
+        d_nu = d_ang[0] * ang_dus[0]
+        d_nv = d_ang[0] * ang_dvs[0]
+        for a in range(1, len(names)):
+            d_nu = d_nu + d_ang[a] * ang_dus[a]
+            d_nv = d_nv + d_ang[a] * ang_dvs[a]
+        cols = {c: d_par[0], 3 + c: d_par[1], 6: d_par[2], 7: d_nu, 8: d_nv}
+        rw = r * w[c]
+        for j, cj in cols.items():
+            g_terms.setdefault(j, []).append(cj * rw)
+        if mode == "full":
+            w2 = w[c] * w[c]
+            keys = sorted(cols)
+            for ji, j in enumerate(keys):
+                for k in keys[ji:]:
+                    a_terms.setdefault((j, k), []).append(cols[j] * cols[k] * w2)
+
+    rows = [_view_sum(chi2_terms)]
+    zero = torch.zeros_like(rows[0])
+    if mode == "full":
+        for j in range(m):
+            for k in range(j, m):
+                rows.append(_view_sum(a_terms[(j, k)]) if (j, k) in a_terms else zero)
+    if mode in ("full", "grad"):
+        rows.extend(_view_sum(g_terms[j]) for j in range(m))
+    return torch.stack(rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _joint_entry():
+    from brdf_tpu_torch.ops import _build
+
+    fn = _build.load("joint_ne").brdf_joint_ne_rows
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [i, i, p, p, p, p, p, p, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_joint(base_model: str, mode: str) -> None:
+    if base_model not in JOINT_MODELS:
+        raise ValueError(f"the joint kernel takes a (kd, ks, shape) base lobe "
+                         f"{JOINT_MODELS}, got {base_model!r}")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; choose from {tuple(MODES)}")
+
+
+def joint_ne_rows_cuda(base_model: str, mode: str, lv, y, w, p_rows, frame) -> torch.Tensor:
+    """Launch K7 on views-major CUDA inputs → the ``(R, T)`` rows."""
+    _check_joint(base_model, mode)
+    _check_cuda("K7", lv, y, w, p_rows, frame)
+    if lv.ndim != 3 or lv.shape[0] != 6:
+        raise ValueError(f"K7: lv is (6, V, T), got {tuple(lv.shape)}")
+    _, v, t = lv.shape
+    if (y.shape != (3, v, t) or w.shape != (3, v, t) or p_rows.shape != (JOINT_M, t)
+            or frame.shape != (9, t)):
+        raise ValueError(f"K7 shapes: lv {tuple(lv.shape)}, y {tuple(y.shape)}, w {tuple(w.shape)}, "
+                         f"p {tuple(p_rows.shape)}, frame {tuple(frame.shape)}")
+    if t >= 2**31:
+        raise ValueError(f"K7 covers fewer than 2^31 texels a launch, got T={t}")
+    out = torch.empty((ne_rows_count(JOINT_M, mode), t), dtype=torch.float32, device=lv.device)
+    if t == 0:
+        return out
+    if v == 0:
+        return out.zero_()
+    stream = torch.cuda.current_stream(lv.device).cuda_stream
+    with torch.cuda.device(lv.device):
+        err = _joint_entry()(SHADING_KERNELS[base_model].lobe_id, MODES[mode], lv.data_ptr(),
+                             y.data_ptr(), w.data_ptr(), p_rows.data_ptr(), frame.data_ptr(),
+                             out.data_ptr(), t, v, stream)
+    if err != 0:
+        raise RuntimeError(f"K7 (csrc/joint_ne.cu) launch failed with cudaError {err}")
+    LAUNCHES["joint_ne"] += 1
+    return out
+
+
+def joint_ne_rows(base_model: str, mode: str, lv, y, w, p_rows, frame) -> torch.Tensor:
+    """K7 for CUDA tensors, its plain version for CPU tensors."""
+    if lv.is_cuda:
+        return joint_ne_rows_cuda(base_model, mode, lv, y, w, p_rows, frame)
+    if lv.device.type == "cpu":
+        _check_joint(base_model, mode)
+        return joint_ne_rows_plain(base_model, mode, lv, y, w, p_rows, frame)
+    raise ValueError(f"the normal-equation kernels run on cuda or cpu, not {lv.device}")
+
+
+# ---------------------------------------------------------------------------
+# The LM control loop both kernels are driven by
+# ---------------------------------------------------------------------------
+
+
+def _clip_rows(p_rows: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    return torch.stack([torch.clamp(p_rows[j], cfg.lower[j], cfg.upper[j])
+                        for j in range(p_rows.shape[0])])
+
+
+def _split_full(out: torch.Tensor, m: int):
+    a = {}
+    idx = 1
+    for j in range(m):
+        for k in range(j, m):
+            a[(j, k)] = out[idx]
+            idx += 1
+    return a, [out[idx + j] for j in range(m)]
+
+
+def chunked_lm_loop(cfg: LMConfig, rows_fn, p_init: torch.Tensor, warm=None) -> PallasFitResult:
+    """The LM control loop of the chunked tier on ``(T,)`` lanes.
+
+    ``rows_fn(mode, p_rows (m, T)) -> (R, T)`` evaluates the normal equations
+    (``"full"``) or χ² alone (``"chi2"``); ``p_init (m, T)`` is projected onto
+    the box first. One pass is: normal equations at the current point (one
+    kernel launch), projected-gradient norm, Kanzow μ when no warm μ came in,
+    active-set freeze, the damped solve, box projection, χ² at the trial point
+    (a second launch), predicted reduction, Nielsen's μ/ν and the stop codes,
+    later assignments winning. A lane that has stopped keeps its state. The
+    damping is additive (``opts.damping`` is not read, as in the reference).
+    The loop ends when no lane is active, which costs one host
+    synchronisation per pass."""
+    global LOOP_SYNCS
+    m = p_init.shape[0]
+    lb, ub = cfg.lower, cfg.upper
+    p_rows = _clip_rows(p_init, cfg)
+    chi2 = rows_fn("chi2", p_rows)[0]
+    zero = torch.zeros_like(chi2)
+    one = zero + 1.0
+    third = zero + 1.0 / 3.0
+    tiny = zero + _TINY
+
+    if warm is None:
+        mu, nu, stop_w = zero, zero + 2.0, zero
+    else:
+        mu_w, nu_w, stop_w = (torch.as_tensor(x, device=chi2.device).to(torch.float32) for x in warm)
+        mu = torch.where(torch.isfinite(mu_w) & (mu_w > 0), mu_w, zero)
+        nu = torch.where(torch.isfinite(nu_w) & (nu_w >= 2.0), nu_w, zero + 2.0)
+    stop0 = torch.where(torch.isfinite(chi2), zero, zero + float(StopReason.INVALID_VALUES))
+    stop = torch.where(stop_w != 0.0, stop_w, stop0)
+    it = zero.clone()
+    g_inf = zero + 3.4e38
+    p = [p_rows[j] for j in range(m)]
+
+    def psum(terms):
+        acc = zero
+        for x in terms:
+            acc = acc + x
+        return acc
+
+    while True:
+        act = (stop == 0.0) & (it < float(cfg.itmax))
+        LOOP_SYNCS += 1
+        if not bool(act.any()):
+            break
+        a, g = _split_full(rows_fn("full", torch.stack(p)), m)
+
+        pg = [torch.abs(p[j] - torch.clamp(p[j] - g[j], lb[j], ub[j])) for j in range(m)]
+        gi = functools.reduce(torch.maximum, pg)
+        grad_conv = gi <= cfg.eps1
+
+        # Kanzow μ only when no (warm) μ was carried in
+        max_diag = functools.reduce(torch.maximum, [a[(j, j)] for j in range(m)])
+        mu_it = torch.where((it == 0.0) & (mu <= 0.0), cfg.tau * max_diag, mu)
+
+        frozen = [((p[j] <= lb[j]) & (g[j] > 0)) | ((p[j] >= ub[j]) & (g[j] < 0)) for j in range(m)]
+        free = [torch.where(frozen[j], zero, one) for j in range(m)]
+        af = {}
+        for j in range(m):
+            af[(j, j)] = torch.where(frozen[j], one, a[(j, j)] + mu_it)
+        for j in range(m):
+            for k in range(j + 1, m):
+                af[(j, k)] = a[(j, k)] * free[j] * free[k]
+        gf = [g[j] * free[j] for j in range(m)]
+
+        dp, solver_ok = _solve_damped(af, gf, m)
+
+        pn = [torch.clamp(p[j] + dp[j], lb[j], ub[j]) for j in range(m)]
+        dpa = [pn[j] - p[j] for j in range(m)]           # the projected step
+        small_dp = psum(x * x for x in dpa) <= cfg.eps2_sq * psum(x * x for x in p)
+
+        chi2_new = rows_fn("chi2", torch.stack(pn))[0]
+        finite = torch.isfinite(chi2_new)
+        df = chi2 - chi2_new
+
+        # predicted reduction −(2 gᵀδ + δᵀ JᵀJ δ) with the unfrozen system
+        q = [psum(a[(min(j, k), max(j, k))] * dpa[k] for k in range(m)) for j in range(m)]
+        g_dot = psum(g[j] * dpa[j] for j in range(m))
+        q_dot = psum(dpa[j] * q[j] for j in range(m))
+        dl = -(2.0 * g_dot + q_dot)
+
+        accept = solver_ok & finite & (df > 0)
+        rho = torch.where(dl > 0, df / torch.maximum(dl, tiny), one)
+        tmp = 2.0 * rho - 1.0
+        mu_next = torch.where(accept, mu_it * torch.maximum(third, 1.0 - tmp * tmp * tmp), mu_it * nu)
+        nu_next = torch.where(accept, zero + 2.0, nu * 2.0)
+
+        st = zero
+        st = torch.where(mu_next > cfg.mu_max, zero + float(StopReason.NO_REDUCTION), st)
+        st = torch.where((~solver_ok) & (mu_it > cfg.half_mu_max),
+                         zero + float(StopReason.SINGULAR), st)
+        st = torch.where(small_dp & solver_ok, zero + float(StopReason.SMALL_DP), st)
+        chi2_sel = torch.where(accept, chi2_new, chi2)
+        st = torch.where(chi2_sel <= cfg.eps3, zero + float(StopReason.SMALL_CHI2), st)
+        st = torch.where(grad_conv, zero + float(StopReason.SMALL_GRADIENT), st)
+
+        take = act & accept
+        p = [torch.where(take, pn[j], p[j]) for j in range(m)]
+        chi2 = torch.where(act, chi2_sel, chi2)
+        mu = torch.where(act, mu_next, mu)
+        nu = torch.where(act, nu_next, nu)
+        it = torch.where(act, it + 1.0, it)
+        stop = torch.where(act, st, stop)
+        g_inf = torch.where(act, gi, g_inf)
+
+    stop_out = torch.where(stop == 0.0, zero + float(StopReason.MAX_ITERATIONS), stop)
+    return PallasFitResult(p=torch.stack(p, dim=-1), chi2=chi2, iters=it,
+                           stop=stop_out.to(torch.int32), g_inf=g_inf, mu=mu, nu=nu)
+
+
+def _no_axis_name(axis_name) -> None:
+    if axis_name is not None:
+        raise NotImplementedError(
+            f"axis_name={axis_name!r}: a view axis sharded over devices is not ported yet "
+            "(ROADMAP.md Queue A items 5 and 11, multi-GPU)")
+
+
+def _views_major(x: torch.Tensor) -> torch.Tensor:
+    """(T, V) → (V, T), contiguous float32."""
+    return x.to(torch.float32).T.contiguous()
+
+
+def _stack_lobe(model: str, angles: ShadingAngles, target, weights):
+    spec = PALLAS_MODELS[model]
+    chans = [getattr(angles, name) for name in spec.angle_names]
+    missing = [name for name, c in zip(spec.angle_names, chans) if c is None]
+    if missing:
+        raise ValueError(f"{model} reads the angle channels {missing}, which are not filled "
+                         "(build the angles with tangent_frame=True)")
+    ang = torch.stack([c.to(torch.float32).T for c in chans]).contiguous()
+    return ang, _views_major(target), None if weights is None else _views_major(weights)
+
+
+def lm_fit_chunked(
+    model: str,
+    angles: ShadingAngles,
+    target: torch.Tensor,              # (T, V)
+    p0: torch.Tensor,                  # (T, m)
+    weights: torch.Tensor | None = None,
+    opts: LMOptions = _DEFAULT_OPTS,
+    lower: tuple = (0.0, 0.0, 0.0),
+    upper: tuple = (100.0, 100.0, 100.0),
+    axis_name: str | None = None,
+    warm: tuple | None = None,
+) -> PallasFitResult:
+    """The LM fit of ``ops/lm.py::lm_fit_fused`` for any view count: the same
+    stop codes and the same one-solve-per-iteration variant, with the normal
+    equations accumulated by K6 (two launches per iteration) and the control
+    loop in eager PyTorch. The contract of ``lm_fit_pallas_chunked`` without
+    ``block_t``, ``view_block``, ``overlap_slices`` and ``interpret`` (the
+    module docstring says why); ``weights=None`` takes the kernel variant that
+    reads no weights."""
+    _no_axis_name(axis_name)
+    cfg = config(model, opts, lower, upper)
+    ang, y, w = _stack_lobe(model, angles, target, weights)
+    p_rows = p0.to(torch.float32).T.contiguous()
+    return chunked_lm_loop(cfg, lambda mode, pr: ne_rows(model, mode, ang, y, w, pr), p_rows, warm)
+
+
+def shading_value_and_grad(
+    model: str,
+    params: torch.Tensor,      # (T, m)
+    angles: ShadingAngles,     # channels (T, V)
+    target: torch.Tensor,      # (T, V)
+    weights: torch.Tensor | None = None,
+):
+    """Per-texel data-fit loss and its parameter gradient in one pass over the
+    angle data: ``(chi2 (T,), g (T, m))`` with ``chi2 = Σ_v (w·(I−y))²`` and
+    ``g = ∂(χ²/2)/∂params`` (K6 in ``"grad"`` mode; the contract of
+    ``shading_value_and_grad_pallas``). ``weights=None`` always takes the
+    unweighted variant, since nothing is padded here."""
+    spec = PALLAS_MODELS[model]
+    ang, y, w = _stack_lobe(model, angles, target, weights)
+    out = ne_rows(model, "grad", ang, y, w, params.to(torch.float32).T.contiguous())
+    return out[0], out[1:1 + spec.n_params].T
+
+
+def _joint_prep(geom: ShadingGeometry, target: torch.Tensor, weights):
+    """Views-major stacks for K7: ``lv (6, V, T)``, ``y``/``w (3, V, T)`` and the
+    frame ``(9, T)``. A ``(T, V)`` weight is shared by the three channels."""
+    f32 = torch.float32
+
+    def vec(x):    # (T, V, 3) → (3, V, T)
+        return x.to(f32).permute(2, 1, 0)
+
+    lv = torch.cat([vec(geom.l), vec(geom.v)]).contiguous()
+    y = vec(target).contiguous()
+    if weights is None:
+        weights = torch.ones(target.shape[:2], dtype=f32, device=target.device)
+    if weights.ndim == 2:
+        weights = weights[..., None].expand(*weights.shape, 3)
+    w = vec(weights).contiguous()
+    n = geom.n.to(f32)
+    tb, bb = tangent_basis(n)
+    frame = torch.cat([n.T, tb.T, bb.T]).contiguous()
+    return lv, y, w, frame
+
+
+def lm_fit_joint_chunked(
+    base_model: str,
+    geom: ShadingGeometry,             # n (T, 3), l/v (T, V, 3)
+    target: torch.Tensor,              # (T, V, 3)
+    p0: torch.Tensor,                  # (T, 9)
+    weights: torch.Tensor | None = None,   # (T, V) or per channel (T, V, 3)
+    opts: LMOptions = _JOINT_OPTS,
+    lower: tuple = (),
+    upper: tuple = (),
+    axis_name: str | None = None,
+    warm: tuple | None = None,
+) -> PallasFitResult:
+    """The m = 9 joint normal-map fit: the control loop of
+    :func:`lm_fit_chunked` around K7, which evaluates the cosines and their
+    offset partials from the geometry, so an iteration is two passes over the
+    (L, V, y, w) stacks and nothing of size V·T is written. The contract of
+    ``lm_fit_joint_pallas_chunked`` without ``block_t``, ``view_block`` and
+    ``interpret``."""
+    _no_axis_name(axis_name)
+    if len(lower) != JOINT_M or len(upper) != JOINT_M:
+        raise ValueError(f"joint fit has {JOINT_M} params; got bounds {lower}/{upper}")
+    _check_joint(base_model, "full")
+    cfg = solve_config(base_model, opts, lower, upper)
+    lv, y, w, frame = _joint_prep(geom, target, weights)
+    p_rows = p0.to(torch.float32).T.contiguous()
+    return chunked_lm_loop(
+        cfg, lambda mode, pr: joint_ne_rows(base_model, mode, lv, y, w, pr, frame), p_rows, warm)
+
+
+def joint_value_and_grad(
+    base_model: str,
+    params: torch.Tensor,      # (T, 9)
+    geom: ShadingGeometry,
+    target: torch.Tensor,      # (T, V, 3)
+    weights: torch.Tensor | None = None,
+):
+    """Loss and gradient of the joint model through the angles in one pass:
+    ``(chi2 (T,), g (T, 9))`` with ``g = ∂(χ²/2)/∂params`` including the two
+    normal-offset columns (K7 in ``"grad"`` mode; the contract of
+    ``joint_value_and_grad_pallas``)."""
+    lv, y, w, frame = _joint_prep(geom, target, weights)
+    out = joint_ne_rows(base_model, "grad", lv, y, w,
+                        params.to(torch.float32).T.contiguous(), frame)
+    return out[0], out[1:1 + JOINT_M].T

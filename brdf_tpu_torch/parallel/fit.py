@@ -8,17 +8,20 @@ engines, K1 for VarPro) are the only device work of any weight.
 
 Engines, under the JAX package's names so that its presets carry over:
 
-- ``"pallas"`` — the hand-written fused LM tier, ``ops/lm.py`` (kernel K5,
-  ``csrc/lm.cu``, on CUDA; its plain version on the CPU, as the JAX package
-  runs its kernel in interpret mode there). Any of the ten lobes.
+- ``"pallas"`` — the hand-written LM tiers, any of the ten lobes: the fused
+  solve of ``ops/lm.py`` (kernel K5, ``csrc/lm.cu``) while a block of it can
+  stage the views in shared memory (``ops/lm.py::fits_fused``: V ≤ 165 for a
+  nine-channel lobe, V ≤ 454 for blinn_phong), else the chunked tier of
+  ``ops/ne.py`` (kernel K6, ``csrc/ne.cu``, under an eager LM loop), which
+  takes any view count. On the CPU their plain versions run, as the JAX
+  package runs its kernels in interpret mode there.
 - ``"xla"`` — the eager PyTorch tier, ``solver/lm.py::levmar_bc``. Any lobe.
 - ``"varpro"`` — the fused VarPro tier, ``ops/varpro.py`` (kernel K1), for
   the four separable lobes.
 - ``"auto"`` — ``"pallas"`` on a CUDA device, ``"xla"`` on the CPU.
 
-Not ported yet: the chunked view tier for view counts the fused LM kernel
-cannot hold (ROADMAP.md Queue B item 5, kernel K6) and multi-GPU sharding
-(Queue A item 5, after the front end).
+Not ported yet: multi-GPU sharding (ROADMAP.md Queue A item 5, after the
+front end).
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import torch
 
 from brdf_tpu_torch.device import resolve_device
 from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles
-from brdf_tpu_torch.ops.lm import PALLAS_MODELS, lm_fit_fused
+from brdf_tpu_torch.ops.lm import PALLAS_MODELS, fits_fused, lm_fit_fused
+from brdf_tpu_torch.ops.ne import lm_fit_chunked
 from brdf_tpu_torch.ops.varpro import varpro_fit_fused
 from brdf_tpu_torch.solver.init import linear_grid_init
 from brdf_tpu_torch.solver.lm import LMOptions, LMResult, levmar_bc
@@ -68,11 +72,15 @@ def _fit_varpro(model, angles, target, weights, p0, k, lower, upper) -> LMResult
 
 
 def _fit_fused_lm(model, angles, target, weights, p0, warm, opts, lower, upper) -> LMResult:
-    """One fused LM fit (K5) mapped onto the LM result: an iteration is one
-    Jacobian pass, one solve and one trial evaluation."""
+    """One LM fit by the hand-written tiers mapped onto the LM result: the
+    fused kernel (K5) while it can stage the views, else the chunked tier
+    (K6), both with the warm state carried. An iteration is one Jacobian
+    pass, one solve and one trial evaluation in either."""
     warm_f = (warm[0], warm[1], warm[2].to(torch.float32))
-    r = lm_fit_fused(model, angles, target, p0, weights=weights,
-                     opts=opts._replace(axis_name=None), lower=lower, upper=upper, warm=warm_f)
+    fused = fits_fused(len(PALLAS_MODELS[model].angle_names), target.shape[1])
+    r = (lm_fit_fused if fused else lm_fit_chunked)(
+        model, angles, target, p0, weights=weights,
+        opts=opts._replace(axis_name=None), lower=lower, upper=upper, warm=warm_f)
     z = torch.zeros_like(r.chi2)
     iters = r.iters.to(torch.int32)
     return LMResult(

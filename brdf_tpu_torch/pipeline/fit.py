@@ -10,10 +10,12 @@ measurements, runs one :func:`~brdf_tpu_torch.parallel.fit.fit_texels` call
 (init → fit → IRLS rounds) and reshapes the result to ``(T, C, …)``. With a
 checkpointer and ``chunk_iters`` the solve runs in resumable chunks
 (``_fit_chunked``): the full solver state is saved between chunks and a
-killed run picks up where it stopped. Not ported yet: cast-shadow weights
-(``shadow_weights=True``, ROADMAP.md Queue A item 10), the joint normal-map
-tier (Queue A item 8), ``fit_single_material`` and ``FitReport.statistics``
-(Queue A item 9).
+killed run picks up where it stopped. ``fit_joint_normalmap`` and
+``fit_joint_normalmap_with_gains`` are the joint normal-map tier: m = 9 (or
+11) parameters per texel, the three channels sharing the shape and a fitted
+normal offset. Not ported yet: cast-shadow weights (``shadow_weights=True``,
+ROADMAP.md Queue A item 10), ``fit_single_material`` and
+``FitReport.statistics`` (Queue A item 9).
 """
 
 from __future__ import annotations
@@ -33,10 +35,22 @@ from brdf_tpu_torch.models.brdf import (
     angles_from_geometry_np,
     shading_geometry_np,
 )
+from brdf_tpu_torch.models.normalmap import (
+    JointSpec,
+    joint_eval,
+    joint_p0_from_channelwise,
+    joint_residual,
+    joint_spec,
+)
+from brdf_tpu_torch.ops.lm import PALLAS_MODELS
+from brdf_tpu_torch.ops.ne import lm_fit_joint_chunked
 from brdf_tpu_torch.parallel.fit import fit_texels
+from brdf_tpu_torch.pipeline.diagnostics import estimate_view_gains
 from brdf_tpu_torch.pipeline.scene import Scene
-from brdf_tpu_torch.solver.lm import LMOptions, LMResult, StopReason
+from brdf_tpu_torch.solver.init import linear_grid_init
+from brdf_tpu_torch.solver.lm import LMOptions, LMResult, StopReason, levmar_bc
 from brdf_tpu_torch.solver.robust import robust_weights, saturation_weights
+from brdf_tpu_torch.solver.varpro_joint import varpro_fit_joint
 from brdf_tpu_torch.utils.checkpoint import latest_step
 
 
@@ -248,13 +262,10 @@ def fit_quality_metrics(
     its upper bound, with nothing flagging it).
 
     ``device`` is where the reprojection runs (``cuda`` unless the caller
-    passes another). ``joint_normals=True`` belongs to the joint normal-map
-    tier, which is not ported yet.
+    passes another). ``joint_normals=True`` says the parameters come from a
+    joint normal-map fit: a parameter pinned at its upper bound is then no
+    longer put down to normal error.
     """
-    if joint_normals:
-        raise NotImplementedError(
-            "joint_normals=True audits a joint normal-map fit, which is not ported yet "
-            "(ROADMAP.md Queue A item 8)")
     dev = resolve_device(device)
     spec = MODELS[model]
     params = _to_numpy(params)
@@ -341,14 +352,15 @@ def fit_quality_metrics(
                 f"param {name}: {fr['upper']:.0%} of texels pinned at the "
                 f"UPPER bound — raise the bound or suspect non-identifiability"
             )
-            # Scanned-normal error launders into clamped specular params
-            # (the JAX package measured ks pinned on 59% of a scanned
-            # bunny's texels per channel against 3% under the joint fit).
-            msg += (
-                "; on real scans this usually means normal error — "
-                "refit with the joint normal-map tier "
-                "(ModelConfig.joint_normalmap / the *-joint presets)"
-            )
+            if not joint_normals:
+                # Scanned-normal error launders into clamped specular params
+                # (the JAX package measured ks pinned on 59% of a scanned
+                # bunny's texels per channel against 3% under the joint fit).
+                msg += (
+                    "; on real scans this usually means normal error — "
+                    "refit with the joint normal-map tier "
+                    "(ModelConfig.joint_normalmap / the *-joint presets)"
+                )
             warnings.append(msg)
         if fr["lower"] > 0.5:
             warnings.append(
@@ -510,3 +522,180 @@ def fit_per_texel(
     params = res.p.reshape(t, c, spec.n_params)
     result = LMResult(*(x.reshape(t, c) if x.ndim == 1 else x for x in res))
     return FitReport(params=params, face_ids=problem.face_ids, result=result, model=model)
+
+
+JOINT_ENGINES = ("auto", "pallas", "xla", "varpro")
+
+
+def _as_tensor(x, dev, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(x).to(device=dev, dtype=dtype)
+
+
+def _joint_solve(base_model, spec: JointSpec, opts, max_tilt, engine, p0, geometry, intensity,
+                 weights) -> LMResult:
+    """One joint solve from start ``p0`` (T, 8+k) under weights (T, V, 3)."""
+    if engine == "varpro":
+        # 3-D profiled variable projection (solver/varpro_joint.py): the six
+        # kd/ks parameters are eliminated in closed form per iteration, for a
+        # fixed iteration count. Cheaper per lane than the LM tiers, which win
+        # the identifiability-limited normal tail: the fast tier, not the
+        # default. The per-channel start is derived from p0.
+        chan_p = torch.stack(
+            [torch.stack([p0[:, c], p0[:, 3 + c], p0[:, 6]], -1) for c in range(3)], dim=1)
+        k = min(opts.itmax, 12)
+        r, _ = varpro_fit_joint(base_model, geometry, intensity, weights=weights,
+                                channel_params=chan_p, iters=k, max_tilt=max_tilt)
+        z = torch.zeros_like(r.chi2)
+        # fixed-schedule work counters (k+1 evaluations, k solves)
+        k_full = torch.full_like(r.iters, k)
+        return LMResult(
+            p=r.p, chi2=r.chi2, chi2_init=z, g_inf=r.g_inf, iters=r.iters, stop=r.stop,
+            nfev=k_full + 1, njev=k_full, mu=z, nu=z, nlss=k_full, constraint_violation=z,
+        )
+    if engine == "pallas":
+        r = lm_fit_joint_chunked(base_model, geometry, intensity, p0, weights=weights, opts=opts,
+                                 lower=tuple(spec.lower), upper=tuple(spec.upper))
+        z = torch.zeros_like(r.chi2)
+        iters = r.iters.to(torch.int32)
+        return LMResult(
+            p=r.p, chi2=r.chi2, chi2_init=z, g_inf=r.g_inf, iters=iters, stop=r.stop,
+            nfev=(2.0 * r.iters + 1).to(torch.int32), njev=iters, mu=r.mu, nu=r.nu,
+            nlss=iters, constraint_violation=z,
+        )
+    return levmar_bc(joint_residual(spec), p0, spec.lower, spec.upper,
+                     data=(geometry, intensity, weights), opts=opts)
+
+
+def fit_joint_normalmap(
+    problem: TexelProblem,
+    base_model: str = "cook_torrance",
+    opts: LMOptions | None = None,
+    channel_report: FitReport | None = None,
+    max_tilt: float = 0.6,
+    engine: str = "auto",
+    device=None,
+    mask_saturation: bool = True,
+    robust: str | None = None,
+    robust_iters: int = 2,
+):
+    """Jointly fit per-texel normals + material: m = 9 params (RGB kd, RGB ks,
+    shared shape, tangent normal offset; m = 11 around an anisotropic base),
+    n = 3·V residuals, box-constrained (the box on the offsets bounds the
+    tilt). Returns ``(LMResult, JointSpec)``.
+
+    Needs a problem built ``with_geometry=True``. Starts from independent
+    per-channel fits when supplied (``channel_report``), else from the linear
+    grid initializer per channel under that channel's weights.
+
+    Weights are per channel throughout (the channels are independent
+    measurements): ``problem.weights`` (T, V), or already (T, V, 3), composes
+    with the per-channel saturation mask (``mask_saturation``, on by default
+    like that of the per-texel fit) and with per-(channel, view) IRLS robust
+    reweighting of the joint residual (``robust``/``robust_iters`` —
+    "huber"/"cauchy"/"tukey" rounds, each a refit from the previous round's
+    parameters, exactly as in :func:`fit_per_texel`).
+
+    ``engine``: "xla" (eager ``levmar_bc`` with a forward-mode Jacobian through
+    ``perturbed_angles``), "pallas" (``ops/ne.py::lm_fit_joint_chunked``: the
+    m=9 normal-equation kernel K7, with the angles and their offset partials
+    evaluated in the kernel; its plain version on the CPU), "varpro"
+    (``solver/varpro_joint.py``), or "auto": "pallas" on a CUDA device when
+    the base lobe has one shape parameter, else "xla". The m = 11 fit runs on
+    "xla" only.
+
+    The arguments are those of the JAX ``fit_joint_normalmap`` with ``mesh=``
+    replaced by ``device=`` (``cuda`` unless the caller passes another).
+    """
+    if engine not in JOINT_ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; choose from {JOINT_ENGINES}")
+    if problem.geometry is None:
+        raise ValueError("joint fit requires build_face_problem(with_geometry=True)")
+    dev = resolve_device(device)
+    spec = joint_spec(base_model, max_tilt=max_tilt)
+    if opts is None:
+        opts = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=40)
+    if engine == "auto":
+        engine = ("pallas" if dev.type == "cuda" and base_model in PALLAS_MODELS
+                  and spec.n_shape == 1 else "xla")
+    if spec.n_shape != 1 and engine in ("pallas", "varpro"):
+        raise ValueError(
+            f"joint engine {engine!r} supports single-shape (m=9) bases; "
+            f"the m={spec.n_params} joint fit for {base_model!r} runs on "
+            "engine='xla' (forward-mode Jacobian through perturbed_angles)"
+        )
+
+    intensity = _as_tensor(problem.intensity, dev)
+    dtype = intensity.dtype
+    c = intensity.shape[-1]
+    angles = ShadingAngles(*(None if a is None else _as_tensor(a, dev) for a in problem.angles))
+    geometry = ShadingGeometry(*(_as_tensor(x, dev) for x in problem.geometry))
+    # per-channel weight stack (T, V, 3): the base weights (visibility masks,
+    # shared (T, V), or already per channel, e.g. a mask computed against
+    # unscaled measurements) times the per-channel saturation mask
+    w_base = _as_tensor(problem.weights, dev, dtype)
+    weights = w_base[..., None].repeat(1, 1, c) if w_base.ndim == 2 else w_base
+    if mask_saturation:
+        weights = weights * saturation_weights(intensity)
+
+    with torch.no_grad():
+        if channel_report is not None:
+            chan = _as_tensor(channel_report.params, dev, dtype)           # (T, 3, m_base)
+        else:
+            chan = torch.stack(
+                [linear_grid_init(base_model, angles, intensity[..., ch], weights=weights[..., ch])
+                 for ch in range(c)], dim=1)
+        p0 = joint_p0_from_channelwise(chan)                               # (T, 8+k)
+
+        def solve(p_start, w):
+            return _joint_solve(base_model, spec, opts, float(max_tilt), engine, p_start,
+                                geometry, intensity, w)
+
+        res = solve(p0, weights)
+        # IRLS rounds: per-channel robust weights from the JOINT residual (the
+        # fitted normal is part of the model, so shadowed and outlier views are
+        # downweighted against the joint prediction, not the raw-normal one)
+        for _ in range(int(robust_iters) if robust else 0):
+            resid = joint_eval(spec, res.p, geometry) - intensity          # (T, V, 3)
+            w_irls = robust_weights(resid.permute(0, 2, 1), weights.permute(0, 2, 1),
+                                    kind=robust).permute(0, 2, 1)
+            res = solve(res.p, w_irls)
+    return res, spec
+
+
+def fit_joint_normalmap_with_gains(
+    problem: TexelProblem,
+    base_model: str = "cook_torrance",
+    rounds: int = 2,
+    mask_saturation: bool = True,
+    **kwargs,
+):
+    """Joint normal-map fit with per-view rig gains as nuisance parameters
+    (alternation: joint fit ↔ closed-form gain solve, clamped to [0.5, 2]).
+
+    The reference hard-coded equal-intensity LEDs. The per-channel saturation
+    mask is computed once against the unscaled measurements and frozen across
+    the alternation (scaling the targets must not move the mask). Returns
+    ``(res, spec, gains)``; the fitted forward model of the scan is
+    ``gains[v] · model(params)`` (renders under novel lights ignore the gains:
+    they are a property of the rig, not the material). ``kwargs`` go to
+    :func:`fit_joint_normalmap`.
+    """
+    intensity = _to_numpy(problem.intensity)
+    w_base = _to_numpy(problem.weights).astype(intensity.dtype)
+    w3 = np.repeat(w_base[..., None], intensity.shape[-1], -1) if w_base.ndim == 2 else w_base
+    if mask_saturation:
+        w3 = w3 * (intensity < 0.98).astype(intensity.dtype)
+
+    gains = np.ones((intensity.shape[1],), np.float64)
+    res = spec = None
+    for r in range(rounds + 1):
+        scaled = intensity / np.maximum(gains[None, :, None], 1e-3)
+        prob = problem._replace(intensity=scaled.astype(intensity.dtype), weights=w3)
+        res, spec = fit_joint_normalmap(prob, base_model, mask_saturation=False, **kwargs)
+        if r == rounds:
+            break
+        with torch.no_grad():
+            geometry = ShadingGeometry(*(_as_tensor(x, res.p.device) for x in problem.geometry))
+            pred = joint_eval(spec, res.p, geometry).cpu().numpy()
+        gains = estimate_view_gains(pred, intensity, w3)
+    return res, spec, gains

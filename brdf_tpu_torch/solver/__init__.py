@@ -1,1 +1,14 @@
-"""Solvers: grid init, robust weights, the unfused VarPro tier, LM result types."""
+"""Solvers: grid init, robust weights, the unfused VarPro tiers, the eager LM."""
+
+from brdf_tpu_torch.solver.lm import (  # noqa: F401
+    LMOptions,
+    LMResult,
+    StopReason,
+    check_jacobian,
+    fd_jacobian,
+    levmar,
+    levmar_bc,
+    levmar_lec,
+)
+from brdf_tpu_torch.solver.varpro import VarProResult, varpro_fit  # noqa: F401
+from brdf_tpu_torch.solver.varpro_joint import JointVarProResult, varpro_fit_joint  # noqa: F401

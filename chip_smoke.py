@@ -58,7 +58,32 @@ per source, in parallel), then:
 15. times K2, K3, K4 (CUDA events) with their byte bounds, and splits the
     wall time of ``relight`` and of one turntable frame into rasterize,
     gather, device and copy back;
-16. prints one JSON line of every ported kernel (K0–K5), then the card line,
+16. holds the normal-equation kernels K6 (``csrc/ne.cu``) and K7
+    (``csrc/joint_ne.cu``) against their plain versions in all three modes:
+    K6 on all ten lobes, weighted and unweighted (cook_torrance at
+    1048576 × 16, ward_aniso at 393216 × 16, the rest at 16384 × 16, T=517 with
+    V=600, three cases with cosines on the clamp edges), K7 on its four base
+    lobes with shared and per-channel weights at 262144 × 16 and 517 × 37; and
+    their ``grad`` mode against ``torch.autograd`` of the eager models;
+17. drives the chunked LM tier: ``fit_texels(engine="pallas")`` on 65536
+    texels × 384 views (more than K5 stages for cook_torrance) runs K6 and
+    not K5, recovers the truth and equals the same loop over K6's plain
+    version; at 256 views the chunked tier beside K5 at one warp a block; at
+    16 views ``lm_fit_chunked`` against ``lm_fit_fused``;
+18. drives the joint normal-map fit at full width, 131072 texels × 16 views ×
+    3 channels: ``fit_joint_normalmap()`` with its defaults (K7) from the grid
+    init, from a ``fit_per_texel`` report and with two huber rounds, counting
+    K7's launches (2 × passes + 1 a solve), against the same fit over K7's
+    plain version, with the quality bars of tests/test_joint_pallas.py;
+    ``engine="xla"`` and ``"varpro"`` and the gains alternation on 8192 texels;
+19. closes the loop with fitted normals: the icosphere's 16 LED views rendered
+    with a known per-face normal offset, ``fit_per_texel`` →
+    ``fit_joint_normalmap(channel_report=)`` → ``render_image`` with the
+    fitted offsets (view-0 RMS under 0.02 and below the render without them);
+20. times K6 and K7 per mode (CUDA events) with their bounds, splits one warm
+    joint fit into K7, the eager loop and idle time, and times
+    ``shading_value_and_grad`` beside K2 + K3 and autograd of the eager lobe;
+21. prints one JSON line of every ported kernel (K0–K7), then the card line,
     then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and the script exits non-zero without the ``ok`` line.
@@ -88,8 +113,16 @@ from brdf_tpu_torch.geometry import Camera, TriangleMesh  # noqa: E402
 from brdf_tpu_torch.geometry.primitives import icosphere  # noqa: E402
 from brdf_tpu_torch.geometry.rasterize import rasterize_mesh  # noqa: E402
 from brdf_tpu_torch.io import led_rig_positions  # noqa: E402
-from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles, shading_angles  # noqa: E402
-from brdf_tpu_torch.ops import _build, lm as k5, shading as k0, varpro as k1  # noqa: E402
+from brdf_tpu_torch.models.brdf import (  # noqa: E402
+    MODELS,
+    ShadingAngles,
+    ShadingGeometry,
+    angles_from_geometry,
+    shading_angles,
+    shading_geometry,
+)
+from brdf_tpu_torch.models.normalmap import joint_eval, joint_spec, tangent_basis  # noqa: E402
+from brdf_tpu_torch.ops import _build, lm as k5, ne as k6, shading as k0, varpro as k1  # noqa: E402
 from brdf_tpu_torch.parallel import fit as pfit  # noqa: E402
 from brdf_tpu_torch.pipeline import fit as pipeline_fit  # noqa: E402
 from brdf_tpu_torch.pipeline import render as prender  # noqa: E402
@@ -98,6 +131,8 @@ from brdf_tpu_torch.pipeline.fit import (  # noqa: E402
     TexelProblem,
     build_face_problem,
     build_pixel_problem,
+    fit_joint_normalmap,
+    fit_joint_normalmap_with_gains,
     fit_per_texel,
 )
 from brdf_tpu_torch.solver.init import linear_grid_init  # noqa: E402
@@ -387,10 +422,13 @@ def warm_profile(call, kernel: str) -> dict:
         reverse=True)
     busy_ms = sum(k[0] for k in kernels) / 1e3
     fused_ms = sum(k[0] for k in kernels if kernel in k[1]) / 1e3
+    n_launches = sum(k[2] for k in kernels)
+    n_fused = sum(k[2] for k in kernels if kernel in k[1])
     wall = float(np.median(walls))
     return dict(
         wall_ms_median=wall, wall_ms=walls, device_busy_ms=busy_ms,
         fused_kernel=kernel, fused_kernel_device_ms=fused_ms,
+        device_launches=n_launches, fused_kernel_launches=n_fused,
         fused_kernel_share=fused_ms / busy_ms if busy_ms else None,
         device_idle_share=1.0 - busy_ms / wall if busy_ms else None,
         top_kernels=[dict(name=k[:90], device_ms=us / 1e3, count=c)
@@ -639,15 +677,8 @@ def phase_k5_parity(errs: list[float]) -> dict:
 def synthetic_geometry(rng: np.random.Generator, t: int, v: int):
     """bench.py::_lm_general_row's scene: random surface points and normals,
     ``v`` lights on a sphere of radius 8, the eye on the z axis."""
-    pts = rng.normal(size=(t, 3)).astype(np.float32) * 0.1
-    nrm = rng.normal(size=(t, 3))
-    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
-    d = rng.normal(size=(v, 3))
-    lights = d / np.linalg.norm(d, axis=-1, keepdims=True) * 8.0
-    as_t = lambda x: torch.tensor(x, dtype=torch.float32, device=DEVICE)  # noqa: E731
     with torch.no_grad():
-        return shading_angles(as_t(pts), as_t(nrm), as_t([0.0, 0.0, 10.0]), as_t(lights),
-                              tangent_frame=True)
+        return shading_angles(*synthetic_scene(rng, t, v), tangent_frame=True)
 
 
 def phase_lm_gates() -> tuple[dict, tuple]:
@@ -1301,9 +1332,717 @@ def phase_shade_timing(relight_shape) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# The normal-equation kernels K6 and K7, the chunked tier and the joint fit
+# --------------------------------------------------------------------------
+
+NE_MODES = ("chi2", "grad", "full")
+# the joint main path, bench.py::_joint_mrays's batch, the subset for the
+# slower engines; the chunked tier's texels, a view count K5 cannot stage for
+# cook_torrance (limit 363) and one it stages at a single warp a block
+T_JOINT, T_JOINT_BATCH, T_JOINT_SUBSET = 131072, 262144, 8192
+T_CHUNKED, V_CHUNKED, V_ONE_WARP = 65536, 384, 256
+# tests/test_lm_chunked.py's options for the long-view-axis fit
+CHUNKED_OPTS = LMOptions(eps1=1e-6, eps2=1e-7, eps3=1e-12, itmax=40)
+# tests/test_joint_pallas.py's options for the engine comparison and the gains
+JOINT_TEST_OPTS = LMOptions(eps1=1e-8, eps2=1e-8, eps3=1e-16, itmax=80)
+
+
+def reset_ne_counts() -> None:
+    for key in k6.LAUNCHES:
+        k6.LAUNCHES[key] = 0
+
+
+def ne_bytes(model: str, t: int, v: int, mode: str, weighted: bool) -> float:
+    """K6: angles, y, (w,) and parameters read once, the R rows written once."""
+    spec = k0.SHADING_KERNELS[model]
+    a, m = len(spec.angle_names), spec.n_params
+    return 4.0 * t * ((a + 1 + int(weighted)) * v + m + k6.ne_rows_count(m, mode))
+
+
+def ne_operations(model: str, t: int, v: int, mode: str, weighted: bool) -> float:
+    """K6's FP32 operations with LM_LOBE_OPS' counts of one lobe evaluation:
+    the residual and its square, then per gradient row a multiply and an add,
+    per JᵀJ entry two multiplies (one unweighted) and an add."""
+    value, full = LM_LOBE_OPS[model]
+    m = k0.SHADING_KERNELS[model].n_params
+    pairs = float(t) * v
+    resid = 4 if weighted else 2
+    if mode == "chi2":
+        return pairs * (value + resid)
+    grad = 2 * m + (2 if weighted else 0)
+    if mode == "grad":
+        return pairs * (full + resid + grad)
+    return pairs * (full + resid + grad + (3 if weighted else 2) * (m * (m + 1) // 2))
+
+
+def joint_ne_bytes(t: int, v: int, mode: str) -> float:
+    """K7: 12 floats a (view, texel) pair (L, V, y, w), 18 a texel, R rows out."""
+    return 4.0 * t * (12 * v + 18 + k6.ne_rows_count(k6.JOINT_M, mode))
+
+
+def joint_ne_operations(base: str, t: int, v: int, mode: str) -> float:
+    """K7's FP32 operations a (view, texel) pair: the half vector (14), a dot
+    product per cosine (5, or 15 with its two offset partials; phong's R·V adds
+    8 or 18), then per channel one lobe evaluation (with all partials: 1.5 ×
+    the parameter-partial count, as for K0), the chain rule into the two
+    offset columns, the residual, 5 gradient rows and in ``full`` 15 entries."""
+    value, full = LM_LOBE_OPS[base]
+    names = k0.SHADING_KERNELS[base].angle_names
+    a = len(names)
+    pairs = float(t) * v
+    half = 14 if "cos_nh" in names else 0
+    dots = a + (1 if "cos_rv" in names else 0)
+    if mode == "chi2":
+        return pairs * (half + 5 * dots + (8 if "cos_rv" in names else 0) + 3 * (value + 4))
+    geo = half + 15 * dots + (18 if "cos_rv" in names else 0)
+    per_channel = 1.5 * full + 2 * (2 * a - 1) + 5 + 10
+    if mode == "full":
+        per_channel += 15 * 3 + 1
+    return pairs * (geo + 3 * per_channel)
+
+
+def bound_of(nbytes: float, ops: float) -> dict:
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / FP32_OPS_PER_S * 1e3}
+    by = max(bound, key=bound.get)
+    return dict(bytes=nbytes, operations=ops, bound_ms=bound[by], bound_by=by,
+                bound_bytes_ms=bound["bytes"], bound_operations_ms=bound["operations"])
+
+
+def make_ne_case(rng: np.random.Generator, model: str, t: int, v: int, edges: bool = False):
+    """``make_shade_case``'s angles and parameters with targets in [0, 1] and
+    weights in [0.2, 1], views-major."""
+    ang, prm, _ = make_shade_case(rng, model, t, v, edges)
+    as_t = lambda x: torch.tensor(x, dtype=torch.float32, device=DEVICE)  # noqa: E731
+    return ang, as_t(rng.uniform(0.0, 1.0, (v, t))), as_t(rng.uniform(0.2, 1.0, (v, t))), prm
+
+
+def phase_ne_parity(errs: list[float]) -> dict:
+    """K6 against ``ne_rows_plain`` on identical inputs on the card, every
+    lobe, mode and weight variant. Both run lobes.cuh's arithmetic without FMA
+    and sum the views left to right, so the bar is equality, NaN with NaN."""
+    rng = np.random.default_rng(61)
+    cases = [(model, {"cook_torrance": T_SHADE, "ward_aniso": T_BENCH * CHANNELS}.get(model, T_SMALL),
+              V, False) for model in ALL_LOBES]
+    cases += [("blinn_phong", 517, 600, False)]
+    cases += [(model, T_SMALL, V, True) for model in ("oren_nayar", "cook_torrance", "ward_aniso")]
+    saved = dict(k6.LAUNCHES)
+    out = {}
+    for model, t, v, edges in cases:
+        ang, y, w, prm = make_ne_case(rng, model, t, v, edges)
+        name = f"{model}/T={t}/V={v}" + ("/edges" if edges else "")
+        out[name] = {}
+        for mode in NE_MODES:
+            for weights in (w, None):
+                got = k6.ne_rows_cuda(model, mode, ang, y, weights, prm)
+                torch.cuda.synchronize()
+                ref = k6.ne_rows_plain(model, mode, ang, y, weights, prm)
+                check(got.shape == ref.shape, f"{name}: {mode} rows {tuple(got.shape)}")
+                share = float(same(got, ref).double().mean())
+                err = float(torch.nan_to_num(got - ref).abs().max())
+                errs.append(err)
+                key = mode + ("/w" if weights is not None else "")
+                out[name][key] = dict(share=share, max_abs_err=err,
+                                      nan_share=float(torch.isnan(got).double().mean()))
+                check(share == 1.0, f"{name}: K6 {key} and its plain version differ ({share})")
+                del got, ref
+        log(f"K6 parity {name}: " + " ".join(f"{k} {r['share']:.6f}" for k, r in out[name].items()))
+    k6.LAUNCHES.update(saved)
+    return out
+
+
+def synthetic_scene(rng: np.random.Generator, t: int, v: int, bench: bool = False):
+    """Random surface points and normals under ``v`` lights, the eye on the z
+    axis, as tensors: the rig of ``synthetic_geometry`` (points near the
+    origin, lights on a sphere of radius 8), or with ``bench`` the scene of
+    bench.py::_joint_mrays and tests/test_joint_pallas.py (unit-normal points,
+    lights scattered around (0, 0, 8))."""
+    pts = rng.normal(size=(t, 3)).astype(np.float32) * (1.0 if bench else 0.1)
+    nrm = rng.normal(size=(t, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    d = rng.normal(size=(v, 3))
+    lights = d * 4 + np.array([0, 0, 8.0]) if bench else d / np.linalg.norm(d, axis=-1, keepdims=True) * 8.0
+    as_t = lambda x: torch.tensor(x, dtype=torch.float32, device=DEVICE)  # noqa: E731
+    return as_t(pts), as_t(nrm), as_t([0.0, 0.0, 10.0]), as_t(lights)
+
+
+def joint_params(rng: np.random.Generator, t: int, base: str, shape_lo: float) -> torch.Tensor:
+    """[kd_rgb, ks_rgb, shape, nu, nv] with offsets within ±0.3; the shape is a
+    roughness in [shape_lo, 0.7], or an exponent in [3, 20] for the power-law
+    lobes."""
+    p = np.zeros((t, 9), np.float32)
+    p[:, 0:3] = rng.uniform(0.2, 0.8, (t, 3))
+    p[:, 3:6] = rng.uniform(0.3, 0.9, (t, 3))
+    p[:, 6] = rng.uniform(3.0, 20.0, t) if "phong" in base else rng.uniform(shape_lo, 0.7, t)
+    p[:, 7:9] = rng.uniform(-0.3, 0.3, (t, 2))
+    return torch.tensor(p, device=DEVICE)
+
+
+def phase_joint_ne_parity(errs: list[float]) -> dict:
+    """K7 against ``joint_ne_rows_plain`` on the four base lobes, three modes,
+    a shared (T, V) weight and a per-channel one with a zeroed column, at
+    bench.py::_joint_mrays's batch (roughness ≥ 0.3, offsets within ±0.3,
+    random targets) and at an odd size. The bar is equality."""
+    rng = np.random.default_rng(62)
+    saved = dict(k6.LAUNCHES)
+    out = {}
+    for base in k6.JOINT_MODELS:
+        for t, v in ((T_JOINT_BATCH, V), (517, 37)):
+            with torch.no_grad():
+                geom = shading_geometry(*synthetic_scene(rng, t, v, bench=True))
+            p_rows = joint_params(rng, t, base, 0.3).T.contiguous()
+            target = torch.tensor(rng.uniform(0.0, 1.0, (t, v, 3)), dtype=torch.float32, device=DEVICE)
+            w3 = torch.tensor(rng.uniform(0.2, 1.0, (t, v, 3)), dtype=torch.float32, device=DEVICE)
+            w3[:, 2, 1] = 0.0
+            name = f"{base}/T={t}/V={v}"
+            out[name] = {}
+            for kind, weights in (("per_channel_w", w3), ("shared_w", w3[..., 0].contiguous())):
+                lv, y, w, frame = k6._joint_prep(geom, target, weights)
+                for mode in NE_MODES:
+                    got = k6.joint_ne_rows_cuda(base, mode, lv, y, w, p_rows, frame)
+                    torch.cuda.synchronize()
+                    ref = k6.joint_ne_rows_plain(base, mode, lv, y, w, p_rows, frame)
+                    check(got.shape == ref.shape == (k6.ne_rows_count(9, mode), t),
+                          f"{name}: {mode} rows {tuple(got.shape)}")
+                    share = float(same(got, ref).double().mean())
+                    err = float(torch.nan_to_num(got - ref).abs().max())
+                    errs.append(err)
+                    out[name][f"{mode}/{kind}"] = dict(share=share, max_abs_err=err)
+                    check(torch.isfinite(got).all(), f"{name}: non-finite K7 rows ({mode})")
+                    check(share == 1.0, f"{name}: K7 {mode}/{kind} and its plain version differ ({share})")
+                    if mode == "full":
+                        zero_rows = int((got[1:46] == 0).all(1).sum())
+                        check(zero_rows == 12, f"{name}: {zero_rows} all-zero JᵀJ rows, expected 12")
+                    del got, ref
+            log(f"K7 parity {name}: " + " ".join(f"{k} {r['share']:.6f}" for k, r in out[name].items()))
+    k6.LAUNCHES.update(saved)
+    return out
+
+
+def phase_ne_autograd() -> dict:
+    """The ``grad`` modes against ``torch.autograd`` of the eager models, with
+    bench.py's bars: ``shading_value_and_grad`` (K6) on the shading batch of
+    ``_shading_rows`` (loss rtol 1e-4; gradient rtol 1e-3, atol 1e-2), and
+    ``joint_value_and_grad`` (K7) on the batch of ``_joint_mrays`` (loss rtol
+    1e-3; gradient rtol 1e-2, atol 1e-4 of its largest entry). Times, no gate:
+    the fused pass, autograd of the eager model, and for K6 also the two
+    passes K2 + K3 through ``shade``."""
+    saved, saved_shade = dict(k6.LAUNCHES), shade_counts()
+    rng = np.random.default_rng(1)
+    model, t = "cook_torrance", T_SHADE
+    as_t = lambda x: torch.tensor(x, dtype=torch.float32, device=DEVICE)  # noqa: E731
+    ang = ShadingAngles(cos_ln=as_t(rng.uniform(-1, 1, (t, V))), cos_nh=as_t(rng.uniform(-1, 1, (t, V))),
+                        cos_rv=as_t(rng.uniform(-1, 1, (t, V))), cos_vn=as_t(rng.uniform(0.05, 1, (t, V))))
+    params = as_t(np.stack([rng.uniform(0.1, 0.9, t), rng.uniform(0.2, 1, t),
+                            rng.uniform(0.1, 0.9, t)], -1))
+    target = as_t(rng.uniform(0, 1, (t, V)))
+
+    def eager(fn):
+        p = params.clone().requires_grad_(True)
+        loss = 0.5 * torch.sum((fn(p) - target) ** 2)
+        return loss.detach(), torch.autograd.grad(loss, p)[0]
+
+    def fused():
+        chi2, g = k6.shading_value_and_grad(model, params, ang, target)
+        return 0.5 * torch.sum(chi2), g
+
+    v_x, g_x = eager(lambda p: MODELS[model].fn(p, ang))
+    v_k, g_k = fused()
+    v_2, g_2 = eager(lambda p: k0.shade(model, p, ang))
+    out = {}
+    for name, v, g in (("fused", v_k, g_k), ("two_pass", v_2, g_2)):
+        off = (g - g_x).abs() - (1e-2 + 1e-3 * g_x.abs())
+        out[name] = dict(loss_rel=float((v - v_x).abs() / v_x.abs()),
+                         grad_share_within=float((off <= 0).double().mean()),
+                         grad_max_abs_diff=float((g - g_x).abs().max()))
+        check(out[name]["loss_rel"] <= 1e-4 and out[name]["grad_share_within"] == 1.0,
+              f"shading loss and gradient ({name}) against autograd of the eager lobe: {out[name]}")
+    out["ms"] = dict(
+        fused=cuda_ms(fused, reps=10),
+        two_pass=cuda_ms(lambda: eager(lambda p: k0.shade(model, p, ang)), reps=5),
+        autograd_eager=cuda_ms(lambda: eager(lambda p: MODELS[model].fn(p, ang)), reps=2))
+    out["batch"] = [t, V]
+    log(f"shading_value_and_grad against autograd: {out}")
+    del ang, params, target, g_x, g_k, g_2
+
+    rng = np.random.default_rng(2)
+    base, t = "cook_torrance", T_JOINT_BATCH
+    spec = joint_spec(base)
+    with torch.no_grad():
+        geom = shading_geometry(*synthetic_scene(rng, t, V, bench=True))
+    p = np.zeros((t, 9), np.float32)
+    p[:, 0:3] = rng.uniform(0.1, 0.9, (t, 3))
+    p[:, 3:6] = rng.uniform(0.1, 0.9, (t, 3))
+    p[:, 6] = rng.uniform(0.3, 0.9, t)
+    p[:, 7:9] = rng.uniform(-0.3, 0.3, (t, 2))
+    params, target = as_t(p), as_t(rng.uniform(0, 1, (t, V, 3)))
+
+    def joint_eager():
+        q = params.clone().requires_grad_(True)
+        r = joint_eval(spec, q, geom) - target
+        loss = 0.5 * torch.sum(r * r)
+        return loss.detach(), torch.autograd.grad(loss, q)[0]
+
+    def joint_fused():
+        chi2, g = k6.joint_value_and_grad(base, params, geom, target)
+        return 0.5 * torch.sum(chi2), g
+
+    v_x, g_x = joint_eager()
+    v_k, g_k = joint_fused()
+    off = (g_k - g_x).abs() - (1e-4 * g_x.abs().max() + 1e-2 * g_x.abs())
+    joint = dict(loss_rel=float((v_k - v_x).abs() / v_x.abs()),
+                 grad_share_within=float((off <= 0).double().mean()),
+                 grad_max_abs=float(g_x.abs().max()), batch=[t, V],
+                 ms=dict(fused=cuda_ms(joint_fused, reps=10),
+                         autograd_eager=cuda_ms(joint_eager, reps=2)))
+    log(f"joint_value_and_grad against autograd: {joint}")
+    check(joint["loss_rel"] <= 1e-3 and joint["grad_share_within"] == 1.0,
+          f"joint loss and gradient against autograd of joint_eval: {joint}")
+    out["joint"] = joint
+    k6.LAUNCHES.update(saved)
+    k0.SHADE_LAUNCHES.update(saved_shade)
+    return out
+
+
+def fit_share(a, b) -> dict:
+    """Two fit results lane for lane: stop codes, iterations, parameters, χ²."""
+    return dict(
+        stop_share=float((a.stop == b.stop).double().mean()),
+        iters_share=float((a.iters == b.iters).double().mean()),
+        param_share=float(same(a.p, b.p).all(-1).double().mean()),
+        chi2_share=float(same(a.chi2, b.chi2).double().mean()),
+        max_abs_err=float(torch.nan_to_num(a.p - b.p).abs().max()),
+    )
+
+
+def warm_wall_ms(fn, reps: int = 3) -> float:
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def phase_chunked_tier(errs: list[float]) -> tuple[int, dict]:
+    """The long-view-axis tier. ``fit_texels(engine="pallas")`` at 384 views,
+    which K5 cannot stage for cook_torrance, must run K6 (two launches a pass
+    and one before the loop) and not K5, recover the truth within 1e-2 on more
+    than 0.9 of the lanes (tests/test_lm_chunked.py's bar at 256 views) and
+    equal the same loop over K6's plain version. At 256 views K5 still stages
+    the views, at one warp a block: both tiers are timed there. At 16 views
+    the chunked tier follows the fused one (the same LM; the two sum Jᵀe in
+    another association, and accept decisions flip at one ulp, so the bar is a
+    share of lanes: counts equal on ≥ 0.8, and on those the parameters within
+    rtol 1e-3, atol 1e-4 on ≥ 0.98)."""
+    model = "cook_torrance"
+    spec = MODELS[model]
+    rng = np.random.default_rng(63)
+    check(not k5.fits_fused(3, V_CHUNKED) and k5.fits_fused(3, V_ONE_WARP),
+          "K5 stages 256 views of cook_torrance and not 384")
+    ang, target, true_p = make_problem(rng, T_CHUNKED, V_CHUNKED, model)
+
+    def fit():
+        return pfit.fit_texels(model, ang, target, opts=CHUNKED_OPTS, engine="pallas", device="cuda")
+
+    saved_k5 = k5.LAUNCHES
+    torch.cuda.synchronize()
+    reset_ne_counts()                            # the chunked tier's main path starts here
+    syncs = k6.LOOP_SYNCS
+    t0 = time.perf_counter()
+    res = fit()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = k6.LAUNCHES["ne"]                 # ... and ends here
+    passes = k6.LOOP_SYNCS - syncs - 1
+    check(k5.LAUNCHES == saved_k5, "384 views went to K5")
+    check(launches == 2 * passes + 1 and passes == int(res.iters.max()),
+          f"K6 launched {launches} times in {passes} passes (iterations max {int(res.iters.max())})")
+    rec = recovery(res.p.cpu().numpy(), true_p)
+    check(torch.isfinite(res.p).all() and bool(((res.stop >= 1) & (res.stop <= 7)).all()),
+          "chunked fit: finite parameters and a final stop code on every lane")
+    check(rec > 0.9, f"chunked fit at {V_CHUNKED} views recovers the truth on {rec}")
+    with mock.patch.object(k6, "ne_rows_cuda", k6.ne_rows_plain):
+        ref = fit()
+    torch.cuda.synchronize()
+    check(k6.LAUNCHES["ne"] == launches, "the plain stand-in must not count as a launch")
+    share = fit_share(res, ref)
+    errs.append(share["max_abs_err"])
+    for key in ("stop_share", "iters_share", "param_share", "chi2_share"):
+        check(share[key] == 1.0, f"chunked fit over K6 vs over its plain version, {key} = {share[key]}")
+    routed = dict(model=model, texels=T_CHUNKED, views=V_CHUNKED, launches=launches, passes=passes,
+                  host_syncs=passes + 1, recovery_frac=rec, iters_mean=float(res.iters.double().mean()),
+                  chi2_median=float(res.chi2.median()), first_wall_s=first_s,
+                  warm_wall_ms=warm_wall_ms(fit), **share)
+    log(f"chunked tier, fit_texels at {V_CHUNKED} views: {routed}")
+    del ang, target, ref
+
+    # 256 views: K5 at one warp a block beside the chunked tier, from one start
+    ang, target, true_p = make_problem(rng, T_CHUNKED, V_ONE_WARP, model)
+    with torch.no_grad():
+        p0 = linear_grid_init(model, ang, target)
+    kw = dict(opts=CHUNKED_OPTS, lower=tuple(spec.lower), upper=tuple(spec.upper))
+    one_warp = dict(texels=T_CHUNKED, views=V_ONE_WARP, k5_block=k5.block_size(3, V_ONE_WARP)[0])
+    for name, fn in (("chunked", k6.lm_fit_chunked), ("fused", k5.lm_fit_fused)):
+        r = fn(model, ang, target, p0, **kw)
+        one_warp[name] = dict(recovery_frac=recovery(r.p.cpu().numpy(), true_p),
+                              iters_mean=float(r.iters.mean()), iters_max=float(r.iters.max()),
+                              warm_wall_ms=warm_wall_ms(lambda: fn(model, ang, target, p0, **kw)))
+        check(one_warp[name]["recovery_frac"] > 0.9, f"{name} tier at 256 views: {one_warp[name]}")
+    log(f"chunked tier beside K5 at {V_ONE_WARP} views: {one_warp}")
+    del ang, target
+
+    # 16 views: the chunked tier follows the fused one
+    model = "blinn_phong"
+    spec = MODELS[model]
+    ang, target, p0, _ = make_lm_problem(rng, T_BENCH, V, model)
+    kw = dict(opts=LM_OPTS, lower=tuple(spec.lower), upper=tuple(spec.upper))
+    r_f = k5.lm_fit_fused(model, ang, target, p0, **kw)
+    r_c = k6.lm_fit_chunked(model, ang, target, p0, **kw)
+    counts = (r_f.stop == r_c.stop) & (r_f.iters == r_c.iters)
+    close = ((r_c.p - r_f.p).abs() <= 1e-4 + 1e-3 * r_f.p.abs()).all(-1)
+    follows = dict(model=model, texels=T_BENCH, views=V,
+                   counts_share=float(counts.double().mean()),
+                   param_share_where_counts_agree=float(close[counts].double().mean()),
+                   param_share=float(close.double().mean()),
+                   chi2_median=[float(r_f.chi2.median()), float(r_c.chi2.median())],
+                   warm_wall_ms=dict(
+                       fused=warm_wall_ms(lambda: k5.lm_fit_fused(model, ang, target, p0, **kw)),
+                       chunked=warm_wall_ms(lambda: k6.lm_fit_chunked(model, ang, target, p0, **kw))))
+    log(f"chunked tier against the fused tier at {V} views: {follows}")
+    check(follows["counts_share"] >= 0.8 and follows["param_share_where_counts_agree"] >= 0.98,
+          f"chunked against fused at 16 views: {follows}")
+    k5.LAUNCHES = saved_k5
+    return launches, dict(routed=routed, one_warp=one_warp, follows_fused=follows)
+
+
+def normal_error_deg(n: torch.Tensor, p: torch.Tensor, true_p: torch.Tensor) -> torch.Tensor:
+    """Angle between the shading normals two offset pairs give, in degrees."""
+    tb, bb = tangent_basis(n)
+
+    def normals_of(q):
+        nn = n + q[:, 7:8] * tb + q[:, 8:9] * bb
+        return nn / torch.linalg.vector_norm(nn, dim=-1, keepdim=True)
+
+    cos = (normals_of(p) * normals_of(true_p)).sum(-1).clamp(-1.0, 1.0)
+    return torch.rad2deg(torch.arccos(cos))
+
+
+def joint_quality(res, geom, true_p) -> dict:
+    """Median χ², the share of lanes with χ² under 1e-9 and under 1e-8, and on
+    the former the median normal error and kd error (how
+    tests/test_joint_pallas.py reads a fit)."""
+    conv = res.chi2 < 1e-9
+    ang = normal_error_deg(geom.n, res.p, true_p)
+    kd_err = (res.p[:, 0:3] - true_p[:, 0:3]).abs()
+    return dict(chi2_median=float(res.chi2.median()), converged_share=float(conv.double().mean()),
+                share_below_1e8=float((res.chi2 < 1e-8).double().mean()),
+                normal_err_deg_median=float(ang[conv].median()) if bool(conv.any()) else None,
+                normal_err_deg_median_all=float(ang.median()),
+                kd_err_median=float(kd_err[conv].median()) if bool(conv.any()) else None,
+                iters_mean=float(res.iters.double().mean()), iters_max=int(res.iters.max()),
+                stops=torch.bincount(res.stop.long(), minlength=8).tolist())
+
+
+def joint_problem_on_card(rng: np.random.Generator, t: int, base: str):
+    with torch.no_grad():
+        geom = shading_geometry(*synthetic_scene(rng, t, V))
+        true_p = joint_params(rng, t, base, 0.2)
+        target = joint_eval(joint_spec(base), true_p, geom)
+        angles = angles_from_geometry(geom)
+    problem = TexelProblem(angles=angles, intensity=target,
+                           weights=torch.ones(t, V, device=DEVICE), face_ids=np.arange(t),
+                           geometry=geom)
+    return problem, true_p
+
+
+def subset(problem: TexelProblem, n: int) -> TexelProblem:
+    cut = lambda x: None if x is None else x[:n]  # noqa: E731
+    return problem._replace(angles=ShadingAngles(*map(cut, problem.angles)),
+                            intensity=problem.intensity[:n], weights=problem.weights[:n],
+                            face_ids=problem.face_ids[:n],
+                            geometry=ShadingGeometry(*map(cut, problem.geometry)))
+
+
+def channel_start(p: torch.Tensor, scale: torch.Tensor | None = None) -> pipeline_fit.FitReport:
+    """Per-channel (kd, ks, shape) parameters of joint parameters as the
+    ``channel_report`` of a joint fit."""
+    chan = torch.stack([torch.stack([p[:, c], p[:, 3 + c], p[:, 6]], -1) for c in range(3)], 1)
+    return pipeline_fit.FitReport(params=chan if scale is None else chan * scale,
+                                  face_ids=np.arange(p.shape[0]), result=None, model="")
+
+
+def phase_joint_main_path(errs: list[float]) -> tuple[int, dict, tuple]:
+    """The slice's main path: ``fit_joint_normalmap()`` with its defaults on
+    131072 texels × 16 views × 3 channels (cook_torrance; ``engine="auto"`` is
+    K7, itmax 40, the saturation mask), from the per-channel grid init, from a
+    ``fit_per_texel`` report, and with two huber rounds. K7's count is set to
+    0 just before and read just after."""
+    base = "cook_torrance"
+    rng = np.random.default_rng(64)
+    problem, true_p = joint_problem_on_card(rng, T_JOINT, base)
+    geom = problem.geometry
+    saved_k5 = k5.LAUNCHES
+    t0 = time.perf_counter()
+    report = fit_per_texel(problem, base)
+    torch.cuda.synchronize()
+    report_s = time.perf_counter() - t0
+    # tests/test_joint_pallas.py::test_joint_chunked_fit_recovers_truth's start
+    # and options, for its bars
+    flat = channel_start(torch.tensor([0.5] * 6 + [0.4, 0.0, 0.0], device=DEVICE).expand(T_JOINT, 9))
+    fits = {"grid_init": dict(), "channel_report": dict(channel_report=report),
+            "channel_report_huber": dict(channel_report=report, robust="huber", robust_iters=2),
+            "flat_start_itmax120": dict(channel_report=flat, opts=LMOptions(
+                eps1=1e-9, eps2=1e-9, eps3=1e-18, itmax=120))}
+    solves = {"grid_init": 1, "channel_report": 1, "channel_report_huber": 3,
+              "flat_start_itmax120": 1}
+    results, counts = {}, {}
+    torch.cuda.synchronize()
+    reset_ne_counts()                            # the joint main path starts here
+    for name, kw in fits.items():
+        before, syncs = k6.LAUNCHES["joint_ne"], k6.LOOP_SYNCS
+        t0 = time.perf_counter()
+        res, spec = fit_joint_normalmap(problem, **kw)
+        torch.cuda.synchronize()
+        results[name] = res
+        counts[name] = dict(launches=k6.LAUNCHES["joint_ne"] - before,
+                            passes=k6.LOOP_SYNCS - syncs - solves[name],
+                            first_wall_s=time.perf_counter() - t0)
+    launches = k6.LAUNCHES["joint_ne"]           # ... and ends here
+    check(k6.LAUNCHES["ne"] == 0, "the joint fit launched K6")
+
+    out = {"fit_per_texel_s": report_s, "texels": T_JOINT, "views": V, "base_model": base}
+    lo = torch.tensor(spec.lower, device=DEVICE)
+    hi = torch.tensor(spec.upper, device=DEVICE)
+    for name, kw in fits.items():
+        res, c = results[name], counts[name]
+        check(c["launches"] == 2 * c["passes"] + solves[name],
+              f"{name}: K7 launched {c['launches']} times in {c['passes']} passes of {solves[name]} solves")
+        if solves[name] == 1:
+            check(c["passes"] == int(res.iters.max()), f"{name}: {c['passes']} passes, iterations max "
+                                                       f"{int(res.iters.max())}")
+        check(res.p.shape == (T_JOINT, 9) and torch.isfinite(res.p).all()
+              and torch.isfinite(res.chi2).all(), f"{name}: finite (T, 9) parameters and chi2")
+        check(bool(((res.p >= lo) & (res.p <= hi)).all()), f"{name}: parameters inside the box")
+        check(bool(((res.stop >= 1) & (res.stop <= 7)).all()), f"{name}: a final stop code on every lane")
+        check(bool((res.nfev == 2 * res.iters + 1).all()), f"{name}: nfev = 2·iters + 1")
+        # the same call over K7's plain version
+        with mock.patch.object(k6, "joint_ne_rows_cuda", k6.joint_ne_rows_plain):
+            ref, _ = fit_joint_normalmap(problem, **kw)
+        torch.cuda.synchronize()
+        check(k6.LAUNCHES["joint_ne"] == launches, "the plain stand-in must not count as a launch")
+        share = fit_share(res, ref)
+        errs.append(share["max_abs_err"])
+        for key in ("stop_share", "iters_share", "param_share", "chi2_share"):
+            check(share[key] == 1.0, f"{name}: K7 path vs plain path, {key} = {share[key]}")
+        out[name] = dict(c, fits=T_JOINT, **joint_quality(res, geom, true_p), **share)
+        log(f"joint main path {name}: {out[name]}")
+    # with the defaults (itmax 40) the bar of tests/test_joint_pallas.py:153-159
+    # (itmax 80 there): median χ² under 1e-8 and more than half the texels
+    # under 1e-8; with that file's 120 iterations from its flat start the bars
+    # of :87-101: median χ² under 1e-9, and on the lanes under 1e-9 the normal
+    # within 0.5° and kd within 0.02 (its share of such lanes, 0.7 on 96
+    # texels, is reported here and held to 0.5: in this scene half the texels
+    # face away from the eye)
+    for name in ("grid_init", "channel_report", "channel_report_huber"):
+        check(out[name]["chi2_median"] < 1e-8 and out[name]["share_below_1e8"] > 0.5,
+              f"joint fit with the defaults, {name}: {out[name]}")
+    deep = out["flat_start_itmax120"]
+    check(deep["chi2_median"] < 1e-9 and deep["converged_share"] > 0.5
+          and deep["normal_err_deg_median"] < 0.5 and deep["kd_err_median"] < 0.02,
+          f"joint fit from the flat start, 120 iterations: {deep}")
+
+    # the other engines on a subset, from a start within 10% of the truth
+    # (tests/test_joint_pallas.py:104-131, tests/test_varpro_joint.py:75-93; that
+    # test's allclose(rtol 5e-2, atol 5e-3) on 64 texels is held here on ≥ 0.95
+    # of the lanes both engines converge: a texel that faces away from the eye
+    # fits its data with more than one parameter set)
+    sub = subset(problem, T_JOINT_SUBSET)
+    true_sub = true_p[:T_JOINT_SUBSET]
+    start = channel_start(true_sub, torch.tensor(rng.uniform(0.9, 1.1, (T_JOINT_SUBSET, 3, 3)),
+                                                 dtype=torch.float32, device=DEVICE))
+    by_engine = {}
+    for engine in ("pallas", "xla", "varpro"):
+        t0 = time.perf_counter()
+        r, _ = fit_joint_normalmap(sub, opts=JOINT_TEST_OPTS, channel_report=start, engine=engine)
+        torch.cuda.synchronize()
+        by_engine[engine] = r
+        out[f"subset_{engine}"] = dict(joint_quality(r, sub.geometry, true_sub),
+                                       wall_s=time.perf_counter() - t0, texels=T_JOINT_SUBSET)
+        log(f"joint fit on {T_JOINT_SUBSET} texels, engine={engine}: {out[f'subset_{engine}']}")
+    r_p, r_x, r_v = (by_engine[e] for e in ("pallas", "xla", "varpro"))
+    both = (r_p.chi2 < 1e-9) & (r_x.chi2 < 1e-9)
+    close = ((r_p.p - r_x.p).abs() <= 5e-3 + 5e-2 * r_x.p.abs()).all(-1)
+    agree = dict(both_converged_share=float(both.double().mean()),
+                 param_share_on_both=float(close[both].double().mean()))
+    out["subset_pallas_vs_xla"] = agree
+    check(float(r_p.chi2.median()) < 1e-9 and float(r_x.chi2.median()) < 1e-9
+          and agree["both_converged_share"] > 0.8 and agree["param_share_on_both"] >= 0.95,
+          f"engine='pallas' against engine='xla': {agree}")
+    ang_v = float(normal_error_deg(sub.geometry.n, r_v.p, true_sub).median())
+    ang_p = float(normal_error_deg(sub.geometry.n, r_p.p, true_sub).median())
+    check(ang_v < max(3 * ang_p, 0.5) and float(r_v.chi2.median()) < 1e-9,
+          f"engine='varpro': median normal error {ang_v} (pallas {ang_p}), median chi2 "
+          f"{float(r_v.chi2.median())}")
+
+    # known per-view gains (tests/test_joint_pallas.py:293-319)
+    true_g = rng.uniform(0.8, 1.25, V).astype(np.float32)
+    true_g /= true_g.mean()
+    scaled = sub.intensity.clamp(0.0, 0.9) * torch.tensor(true_g, device=DEVICE)[None, :, None]
+    t0 = time.perf_counter()
+    _, _, gains = fit_joint_normalmap_with_gains(sub._replace(intensity=scaled), rounds=2,
+                                                 opts=JOINT_TEST_OPTS._replace(itmax=40))
+    corr = float(np.corrcoef(gains, true_g)[0, 1])
+    out["gains"] = dict(correlation=corr, wall_s=time.perf_counter() - t0, texels=T_JOINT_SUBSET,
+                        gains=[float(g) for g in gains], true_gains=[float(g) for g in true_g])
+    log(f"joint fit with view gains: correlation {corr:.4f}")
+    check(corr > 0.8, f"fitted gains against the rig's: {out['gains']}")
+    k5.LAUNCHES = saved_k5
+    return launches, out, (problem, report)
+
+
+def phase_joint_closed_loop() -> dict:
+    """scene → per-channel fit → joint fit → image with fitted normals: the
+    serve scene's 16 LED views rendered from known cook_torrance parameters
+    with a known per-face normal offset, fitted back per face, re-rendered with
+    the fitted offsets and without them."""
+    model = "cook_torrance"
+    rng = np.random.default_rng(65)
+    scene, _ = serve_scene(rng, model)
+    t = scene.mesh.num_faces
+    # a rough, weakly specular material: every measurement stays under the
+    # sensor ceiling of the saturation mask
+    true_p = np.stack([rng.uniform(0.2, 0.8, (t, 3)), rng.uniform(0.1, 0.3, (t, 3)),
+                       np.repeat(rng.uniform(0.45, 0.7, (t, 1)), 3, 1)], axis=-1).astype(np.float32)
+    true_off = rng.uniform(-0.2, 0.2, (t, 2)).astype(np.float32)
+    faces = np.arange(t)
+    saved_shade, saved_k5, saved_ne = shade_counts(), k5.LAUNCHES, dict(k6.LAUNCHES)
+    scene.images = np.stack([
+        prender.render_image(model, scene, true_p, faces, view=vi, normal_offsets=true_off)
+        for vi in range(scene.num_views)]).astype(np.float32)
+    cov = scene.raster_map(0).coverage
+    t0 = time.perf_counter()
+    prob = build_face_problem(scene, with_geometry=True)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = fit_per_texel(prob, model)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res, _ = fit_joint_normalmap(prob, model, channel_report=rep)
+    torch.cuda.synchronize()
+    joint_s = time.perf_counter() - t0
+    p = res.p.cpu().numpy()
+    chan = np.stack([np.stack([p[:, c], p[:, 3 + c], p[:, 6]], -1) for c in range(3)], 1)
+
+    def rms(img):
+        return float(np.sqrt(np.mean((img[cov] - scene.images[0][cov]) ** 2)))
+
+    with_offsets = rms(prender.render_image(model, scene, chan, rep.face_ids, view=0,
+                                            normal_offsets=p[:, 7:9]))
+    without = rms(prender.render_image(model, scene, chan, rep.face_ids, view=0,
+                                       use_vertex_normals=False))
+    per_channel = rms(prender.render_image(model, scene, rep.params.cpu().numpy(), rep.face_ids,
+                                           view=0, use_vertex_normals=False))
+    seen = torch.as_tensor(prob.weights).sum(-1) >= 8
+    true_joint = torch.tensor(np.concatenate([np.zeros((len(rep.face_ids), 7), np.float32),
+                                              true_off[rep.face_ids]], -1))
+    ang = normal_error_deg(torch.as_tensor(prob.geometry.n), res.p.cpu(), true_joint)
+    out = dict(model=model, texels=len(rep.face_ids), build_s=build_s, fit_per_texel_s=fit_s,
+               fit_joint_s=joint_s, k7_launches=k6.LAUNCHES["joint_ne"] - saved_ne["joint_ne"],
+               view0_rms_with_offsets=with_offsets, view0_rms_without_offsets=without,
+               view0_rms_per_channel_fit=per_channel,
+               normal_err_deg_median=float(ang[seen].median()),
+               chi2_median=float(res.chi2.median()))
+    log(f"closed loop with fitted normals: {out}")
+    check(out["k7_launches"] >= 3, "the joint fit of the closed loop never launched K7")
+    check(with_offsets < 0.02 and with_offsets < without,
+          f"re-render with the fitted offsets: RMS {with_offsets} (without them {without})")
+    k0.SHADE_LAUNCHES.update(saved_shade)        # these launches are not the main path's
+    k5.LAUNCHES = saved_k5
+    k6.LAUNCHES.update(saved_ne)
+    return out
+
+
+def phase_ne_timing(joint_inputs) -> dict:
+    """K6 and K7 per launch and mode (CUDA events; 20 back-to-back launches,
+    median of 3 runs) with their bounds, the plain versions in ``full`` mode:
+    K6 on the shading batch (cook_torrance, 1048576 × 16, with and without
+    weights) and on the routed fit's shape (65536 × 384, weighted, as
+    ``fit_texels`` calls it); K7 on bench.py::_joint_mrays's batch and on the
+    main path's shape. Then one warm joint fit split into K7, the rest of the
+    device time and idle time, with the launches a pass outside K7."""
+    rng = np.random.default_rng(66)
+    saved = dict(k6.LAUNCHES)
+    res: dict = {"k6": {}, "k7": {}}
+    model = "cook_torrance"
+    for key, t, v in (("shading_batch", T_SHADE, V), ("routed_fit", T_CHUNKED, V_CHUNKED)):
+        ang, y, w, prm = make_ne_case(rng, model, t, v)
+        res["k6"][key] = dict(model=model, texels=t, views=v)
+        for weights, tag in ((w, "weighted"), (None, "unweighted")):
+            for mode in NE_MODES:
+                ms = cuda_ms(lambda: k6.ne_rows_cuda(model, mode, ang, y, weights, prm), reps=20)
+                res["k6"][key][f"{mode}/{tag}"] = dict(
+                    ms=ms, **bound_of(ne_bytes(model, t, v, mode, weights is not None),
+                                      ne_operations(model, t, v, mode, weights is not None)))
+        res["k6"][key]["full/weighted"]["plain_ms"] = cuda_ms(
+            lambda: k6.ne_rows_plain(model, "full", ang, y, w, prm), reps=1)
+        log(f"K6 timing {key}: {res['k6'][key]}")
+        del ang, y, w, prm
+    base = "cook_torrance"
+    for key, t in (("joint_batch", T_JOINT_BATCH), ("main_path", T_JOINT)):
+        with torch.no_grad():
+            geom = shading_geometry(*synthetic_scene(rng, t, V, bench=True))
+        p_rows = joint_params(rng, t, base, 0.3).T.contiguous()
+        target = torch.tensor(rng.uniform(0.0, 1.0, (t, V, 3)), dtype=torch.float32, device=DEVICE)
+        lv, y, w, frame = k6._joint_prep(geom, target, None)
+        res["k7"][key] = dict(base_model=base, texels=t, views=V)
+        for mode in NE_MODES:
+            ms = cuda_ms(lambda: k6.joint_ne_rows_cuda(base, mode, lv, y, w, p_rows, frame), reps=20)
+            res["k7"][key][mode] = dict(ms=ms, **bound_of(joint_ne_bytes(t, V, mode),
+                                                          joint_ne_operations(base, t, V, mode)))
+        res["k7"][key]["full"]["plain_ms"] = cuda_ms(
+            lambda: k6.joint_ne_rows_plain(base, "full", lv, y, w, p_rows, frame), reps=1)
+        log(f"K7 timing {key}: {res['k7'][key]}")
+        del geom, lv, y, w, frame
+
+    problem, report = joint_inputs
+    for name, kw in (("grid_init", dict()), ("channel_report", dict(channel_report=report))):
+        syncs = k6.LOOP_SYNCS
+        prof = warm_profile(lambda: fit_joint_normalmap(problem, **kw), "joint_ne_kernel")
+        passes = (k6.LOOP_SYNCS - syncs) // 4 - 1            # warm_profile makes four calls
+        prof["passes"] = passes
+        prof["fits_per_s"] = T_JOINT / (prof["wall_ms_median"] * 1e-3)
+        prof["launches_per_pass_outside_k7"] = (
+            (prof["device_launches"] - prof["fused_kernel_launches"]) / max(passes, 1))
+        res[f"joint_fit_warm/{name}"] = prof
+        log(f"joint fit warm ({name}): wall {prof['wall_ms_median']:.1f} ms, device busy "
+            f"{prof['device_busy_ms']:.1f} ms, K7 {prof['fused_kernel_device_ms']:.2f} ms, "
+            f"{prof['launches_per_pass_outside_k7']:.0f} launches a pass outside K7 in {passes} passes")
+    k6.LAUNCHES.update(saved)
+    return res
+
+
 def ptxas_numbers() -> dict:
     """What the assembler said of each kernel built by this run."""
     return {name: _build.ptxas_report(text) for name, text in _build.BUILD_LOGS.items()}
+
+
+def ptxas_by_mode(entries: list[dict]) -> dict:
+    """K6's and K7's instantiations by "lobe id/mode[/w]": registers a thread,
+    and the largest stack frame and spill of any of them."""
+    import re
+
+    regs = {}
+    for e in entries:
+        m = re.search(r"kernelILi(\d+)ELi(\d)E(?:Lb(\d)E)?", e["entry"])
+        key = f"{m.group(1)}/{NE_MODES[int(m.group(2))]}" + ("/w" if m.group(3) == "1" else "")
+        regs[key] = e["registers"]
+    return dict(registers=regs, registers_max=max(regs.values()),
+                stack_bytes_max=max(e["stack_bytes"] for e in entries),
+                spill_bytes_max=max(e["spill_store_bytes"] + e["spill_load_bytes"] for e in entries))
 
 
 def main() -> int:
@@ -1369,6 +2108,28 @@ def main() -> int:
     shade_timing = phase_shade_timing(relight_shape)
     lap("K2-K4 timing")
 
+    # K6, K7, the chunked tier and the joint normal-map fit
+    errs_k6: list[float] = []
+    errs_k7: list[float] = []
+    ne_parity = phase_ne_parity(errs_k6)
+    joint_ne_parity = phase_joint_ne_parity(errs_k7)
+    lap("K6 and K7 parity")
+    ne_autograd = phase_ne_autograd()
+    lap("K6 and K7 against autograd")
+    k6_launches, chunked_tier = phase_chunked_tier(errs_k6)
+    check(k6_launches > 0, "the chunked tier never launched K6")
+    lap("chunked tier")
+    k7_launches, joint_main, joint_inputs = phase_joint_main_path(errs_k7)
+    check(k7_launches > 0, "the joint main path never launched K7")
+    lap("joint main path")
+    ne_timing = phase_ne_timing(joint_inputs)
+    del joint_inputs
+    lap("K6 and K7 timing, joint fit breakdown")
+    with tempfile.TemporaryDirectory() as cache_dir, \
+            mock.patch.dict(os.environ, {pscene.CACHE_DIR_ENV: cache_dir}):
+        joint_loop = phase_joint_closed_loop()
+    lap("closed loop with fitted normals")
+
     numbers = {
         "numbers": {
             "card": card, "kernel": "K1 varpro (csrc/varpro.cu)",
@@ -1382,13 +2143,22 @@ def main() -> int:
             "lm_general_row": dict(lm_timing["lm-general-row"], **lm_gates),
             "main_path_calls": {k: v for k, v in lm_timing.items() if k != "lm-general-row"},
             "main_path": lm_main_path, "main_path_warm": lm_breakdown, "chunked": chunked,
-            "ptxas": {k: v for k, v in ptxas_numbers().items() if k != "shade"},
+            "ptxas": {k: v for k, v in ptxas_numbers().items()
+                      if k not in ("shade", "ne", "joint_ne")},
         },
         "numbers_render": {
             "card": card, "kernel": "K2, K3, K4 shading forward and backward (csrc/shade.cu)",
             "parity": shade_parity, "autograd": shade_autograd, "serve_path": serve,
             "closed_loop": closed_loop, "timing": shade_timing,
             "ptxas": {"shade": ptxas_numbers().get("shade")},
+        },
+        "numbers_joint": {
+            "card": card,
+            "kernel": "K6 normal equations (csrc/ne.cu), K7 joint normal equations (csrc/joint_ne.cu)",
+            "k6_parity": ne_parity, "k7_parity": joint_ne_parity, "autograd": ne_autograd,
+            "chunked_tier": chunked_tier, "main_path": joint_main, "closed_loop": joint_loop,
+            "timing": ne_timing,
+            "ptxas": {name: ptxas_by_mode(ptxas_numbers()[name]) for name in ("ne", "joint_ne")},
             "seconds": time.perf_counter() - t_start,
         },
     }
@@ -1401,6 +2171,8 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke_numbers.json"), "w") as fh:
         json.dump(numbers, fh, indent=1)
     main_t, k0_t, k5_t = timing["main"], k0_cases["timing"], lm_timing["lm-blinn"]
+    k6_t = ne_timing["k6"]["routed_fit"]["full/weighted"]
+    k7_t = ne_timing["k7"]["main_path"]["full"]
 
     def shade_entry(name, kernel, replaces, timed):
         # K2 as the relight call gives it, K3 and K4 as the gradient step does
@@ -1411,13 +2183,14 @@ def main() -> int:
                 "bound_by": timed[kernel]["bound_by"], "library_ms": None}
 
     print(json.dumps({"kernels": [{
-        # device functions inlined into K1-K5: they run once per launch of any
+        # device functions inlined into K1-K7: they run once per launch of any
         # of them; timed and compared through csrc/lobes_eval.cu (ward_aniso)
         "name": "lobes_k0",
         "route": "cuda",
         "source": "brdf_tpu_torch/csrc/lobes.cuh",
         "replaces": "brdf_tpu/ops/shading_pallas.py:495",
-        "launches": launches + lm_launches + sum(shade_launches.values()),
+        "launches": (launches + lm_launches + sum(shade_launches.values())
+                     + k6_launches + k7_launches),
         "max_abs_err": max(errs_k0),
         "ms": k0_t["ms"],
         "plain_ms": k0_t["plain_ms"],
@@ -1454,6 +2227,32 @@ def main() -> int:
         "plain_ms": k5_t["plain_ms"],
         "bound_ms": k5_t["bound_ms"],
         "bound_by": k5_t["bound_by"],
+        "library_ms": None,
+    }, {
+        # full mode with weights on the routed fit's shape (cook_torrance, 65536 x 384)
+        "name": "ne_k6",
+        "route": "cuda",
+        "source": "brdf_tpu_torch/csrc/ne.cu",
+        "replaces": "brdf_tpu/ops/lm_pallas.py:380",
+        "launches": k6_launches,
+        "max_abs_err": max(errs_k6),
+        "ms": k6_t["ms"],
+        "plain_ms": k6_t["plain_ms"],
+        "bound_ms": k6_t["bound_ms"],
+        "bound_by": k6_t["bound_by"],
+        "library_ms": None,
+    }, {
+        # full mode on the joint main path's shape (cook_torrance, 131072 x 16 x 3)
+        "name": "joint_ne_k7",
+        "route": "cuda",
+        "source": "brdf_tpu_torch/csrc/joint_ne.cu",
+        "replaces": "brdf_tpu/ops/lm_pallas.py:939",
+        "launches": k7_launches,
+        "max_abs_err": max(errs_k7),
+        "ms": k7_t["ms"],
+        "plain_ms": k7_t["plain_ms"],
+        "bound_ms": k7_t["bound_ms"],
+        "bound_by": k7_t["bound_by"],
         "library_ms": None,
     }]}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")

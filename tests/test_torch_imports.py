@@ -50,6 +50,10 @@ def test_port_files_exist():
             "brdf_tpu_torch/geometry/rasterize.py", "brdf_tpu_torch/geometry/texel.py",
             "brdf_tpu_torch/native.py", "brdf_tpu_torch/pipeline/scene.py",
             "brdf_tpu_torch/pipeline/render.py"} <= names
+    # ... and those of the chunked LM tier and the joint normal-map tier
+    assert {"brdf_tpu_torch/ops/ne.py", "brdf_tpu_torch/pipeline/diagnostics.py",
+            "brdf_tpu_torch/solver/varpro_joint.py"} <= names
+    assert {"ne.cu", "joint_ne.cu"} <= {f.name for f in (ROOT / "brdf_tpu_torch/csrc").iterdir()}
 
 
 def test_new_modules_import_without_a_gpu_toolchain():
@@ -94,6 +98,69 @@ print("clean")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip().endswith("clean"), out.stderr[-2000:]
+
+
+def test_joint_tier_modules_import_without_building_or_loading():
+    """A fresh interpreter imports the chunked LM tier and the joint
+    normal-map tier, and the names their packages export: no ``jax``, no JAX
+    package, no ``triton``, no shared library loaded, nothing compiled, no
+    launch and no loop pass counted."""
+    import subprocess
+    import sys
+
+    code = """
+import sys
+import brdf_tpu_torch
+for mod in ("ops", "ops.ne", "ops.lm", "models", "models.normalmap", "solver", "solver.varpro_joint",
+            "pipeline", "pipeline.diagnostics", "pipeline.fit", "parallel.fit", "convert"):
+    __import__("brdf_tpu_torch." + mod)
+from brdf_tpu_torch import native
+from brdf_tpu_torch.models import MODELS, ShadingGeometry, shading_geometry
+from brdf_tpu_torch.ops import (PALLAS_MODELS, SHADING_KERNELS, _build, joint_value_and_grad,
+                                lm_fit_chunked, lm_fit_fused, lm_fit_joint_chunked, ne, shade,
+                                shading_value_and_grad)
+from brdf_tpu_torch.pipeline import fit_joint_normalmap, fit_per_texel
+from brdf_tpu_torch.solver import (JointVarProResult, LMOptions, VarProResult, levmar_bc, varpro_fit,
+                                   varpro_fit_joint)
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "brdf_tpu", "PIL", "triton")]
+assert not bad, bad
+assert {"ne", "joint_ne"} <= set(_build.SOURCES) and not _build.BUILD_LOGS
+assert _build.load.cache_info().currsize == 0 and native.load.cache_info().currsize == 0
+assert ne._ne_entry.cache_info().currsize == 0 and ne._joint_entry.cache_info().currsize == 0
+assert ne.LAUNCHES == {"ne": 0, "joint_ne": 0} and ne.LOOP_SYNCS == 0
+print("clean")
+"""
+    env = {k: v for k, v in __import__("os").environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("clean"), out.stderr[-2000:]
+
+
+def test_entry_points_of_the_joint_tier_need_a_device_or_say_so():
+    """``fit_joint_normalmap`` and ``fit_joint_normalmap_with_gains`` go through
+    ``resolve_device``: with no card and no ``device=`` they raise. The
+    wrappers of K6 and K7 refuse a CPU tensor when asked for the kernel."""
+    import numpy as np
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device would run")
+    from brdf_tpu_torch.models.brdf import ShadingGeometry
+    from brdf_tpu_torch.ops import ne
+    from brdf_tpu_torch.pipeline import fit
+
+    geom = ShadingGeometry(n=np.zeros((2, 3), np.float32), l=np.zeros((2, 4, 3), np.float32),
+                           v=np.zeros((2, 4, 3), np.float32))
+    prob = fit.TexelProblem(angles=None, intensity=np.zeros((2, 4, 3), np.float32),
+                            weights=np.ones((2, 4), np.float32), face_ids=np.arange(2), geometry=geom)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit.fit_joint_normalmap(prob)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit.fit_joint_normalmap_with_gains(prob, rounds=0)
+    z = torch.zeros(1, 4, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ne.ne_rows_cuda("lambert", "chi2", z, z[0], None, torch.zeros(1, 2))
+    assert ne.LAUNCHES == {"ne": 0, "joint_ne": 0}
 
 
 def test_entry_points_of_the_render_path_need_a_device_or_say_so():

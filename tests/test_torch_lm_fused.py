@@ -286,7 +286,7 @@ def test_wrapper_checks_bounds_views_and_device():
         k5.config("lambert", LMOptions(damping="none"), (0.0,), (1.0,))
     assert k5.block_size(9, 16) == (128, 11 * 16 * 128 * 4)
     assert k5.block_size(9, 64)[0] == 64          # the block shrinks for more views
-    with pytest.raises(NotImplementedError, match="Queue B item 5"):
+    with pytest.raises(ValueError, match="lm_fit_chunked"):     # the chunked tier's view counts
         k5.block_size(9, 256)
     cfg = k5.config("lambert", LMOptions(), (0.0,), (1.0,))
     rows = k5.stack_inputs("lambert", ta, torch.tensor(target), torch.tensor(p0))

@@ -150,8 +150,9 @@ def test_shading_angles_match_jax():
 
 def test_tangent_frame_waits_for_its_slice():
     """The tangent-frame channels no longer wait: both twins fill them (their
-    values are held against the JAX package in test_torch_fit_lm.py). What
-    still waits is the rest of models/normalmap.py, the joint tier."""
+    values are held against the JAX package in test_torch_fit_lm.py), and
+    neither does the rest of models/normalmap.py, the joint tier
+    (test_torch_normalmap.py)."""
     g = tb.shading_geometry_np(np.zeros((2, 3)), np.array([[0, 0, 1.0]] * 2),
                                np.array([0, 0, 5.0]), np.ones((3, 3)))
     na = tb.angles_from_geometry_np(g, tangent_frame=True)
@@ -161,7 +162,7 @@ def test_tangent_frame_waits_for_its_slice():
         assert getattr(na, name).shape == (2, 3) and getattr(ta, name).shape == (2, 3)
         np.testing.assert_allclose(getattr(ta, name).numpy(), getattr(na, name), atol=1e-6)
     from brdf_tpu_torch.models import normalmap
-    assert not hasattr(normalmap, "joint_residual")
+    assert callable(normalmap.joint_residual) and normalmap.joint_spec().n_params == 9
 
 
 def test_convert_round_trips_angles():

@@ -221,8 +221,10 @@ def test_fit_quality_metrics_flag_a_degenerate_map(synthetic, face_fit):
     kinds = " ".join(got["warnings"])
     assert "kd" in kinds and "LOWER" in kinds and "ks" in kinds and "UPPER" in kinds
     assert max(got["reprojection_mae"]) > 0.05
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        fit_quality_metrics(prob, bad, MODEL, joint_normals=True, device="cpu")
+    # the audit of a joint normal-map fit drops the hint to refit with that tier
+    joint = fit_quality_metrics(prob, bad, MODEL, joint_normals=True, device="cpu")
+    ref = j_fit.fit_quality_metrics(j_fit.build_face_problem(js), bad, MODEL, joint_normals=True)
+    assert joint["warnings"] == ref["warnings"] != got["warnings"]
 
 
 def test_a_problem_converted_to_tensors_fits_the_same(synthetic, face_fit):

@@ -63,3 +63,31 @@ def agreement(p, ref, rtol) -> float:
     (relative, with a 1e-3 floor on |ref|)."""
     rel = np.abs(np.asarray(p) - np.asarray(ref)) / np.maximum(np.abs(np.asarray(ref)), 1e-3)
     return float((rel.max(-1) < rtol).mean())
+
+
+def joint_problem(t, v, seed=0, base="cook_torrance", dtype=np.float32):
+    """``tests/test_joint_pallas.py::_problem`` in numpy: unit vectors to ``v``
+    lights and to the eye for ``t`` random surface points and normals
+    (``n (T, 3)``, ``l``/``v (T, V, 3)``), and true joint parameters
+    ``[kd_rgb, ks_rgb, shape, nu, nv]`` with offsets within ±0.3 (the shape
+    is a roughness in [0.2, 0.7], or an exponent in [3, 20] for the
+    power-law lobes). Returns ``(geom dict, true_p, rng)``."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(t, 3))
+    n = rng.normal(size=(t, 3))
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    eye = np.array([0.0, 0.0, 10.0])
+    lights = rng.normal(size=(v, 3)) * 4 + np.array([0, 0, 8.0])
+
+    def unit(x):
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    l = unit(lights[None] - pts[:, None])
+    e = np.broadcast_to(unit(eye - pts)[:, None], l.shape)
+    true_p = np.zeros((t, 9))
+    true_p[:, 0:3] = rng.uniform(0.2, 0.8, (t, 3))
+    true_p[:, 3:6] = rng.uniform(0.3, 0.9, (t, 3))
+    true_p[:, 6] = rng.uniform(3.0, 20.0, t) if "phong" in base else rng.uniform(0.2, 0.7, t)
+    true_p[:, 7:9] = rng.uniform(-0.3, 0.3, (t, 2))
+    geom = dict(n=n.astype(dtype), l=l.astype(dtype), v=np.ascontiguousarray(e).astype(dtype))
+    return geom, true_p.astype(dtype), rng
