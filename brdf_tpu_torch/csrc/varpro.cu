@@ -28,6 +28,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bvls2.cuh"
 #include "lobes.cuh"
 
 namespace {
@@ -52,45 +53,6 @@ struct SolveArgs {
 __device__ __forceinline__ float clipf(float x, float lo, float hi) {
   // jnp.clip order (max, then min); NaN handling is not relied upon
   return fminf(fmaxf(x, lo), hi);
-}
-
-__device__ __forceinline__ float gram_cost(float x0, float x1, float aa, float ab, float bb,
-                                           float ay, float by) {
-  return x0 * x0 * aa + x1 * x1 * bb + 2.0f * x0 * x1 * ab - 2.0f * (x0 * ay + x1 * by);
-}
-
-// solver/varpro.py::_bvls2 — interior stationary point vs the four clamped edges
-__device__ __forceinline__ void bvls2(float aa, float ab, float bb, float ay, float by,
-                                      const SolveArgs& s, float& kd, float& ks) {
-  const float det = aa * bb - ab * ab;
-  const bool det_ok = fabsf(det) > 1e-30f;
-  const float det_s = det_ok ? det : 1.0f;
-  const float xi0 = (bb * ay - ab * by) / det_s;
-  const float xi1 = (aa * by - ab * ay) / det_s;
-  const bool interior_ok =
-      det_ok && (xi0 >= s.l0) && (xi0 <= s.u0) && (xi1 >= s.l1) && (xi1 <= s.u1);
-
-  float b0 = s.l0;
-  float b1 = clipf((by - s.l0 * ab) / fmaxf(bb, 1e-30f), s.l1, s.u1);
-  float bc = gram_cost(b0, b1, aa, ab, bb, ay, by);
-  {
-    const float x1 = clipf((by - s.u0 * ab) / fmaxf(bb, 1e-30f), s.l1, s.u1);
-    const float c = gram_cost(s.u0, x1, aa, ab, bb, ay, by);
-    if (c < bc) { b0 = s.u0; b1 = x1; bc = c; }
-  }
-  {
-    const float x0 = clipf((ay - s.l1 * ab) / fmaxf(aa, 1e-30f), s.l0, s.u0);
-    const float c = gram_cost(x0, s.l1, aa, ab, bb, ay, by);
-    if (c < bc) { b0 = x0; b1 = s.l1; bc = c; }
-  }
-  {
-    const float x0 = clipf((ay - s.u1 * ab) / fmaxf(aa, 1e-30f), s.l0, s.u0);
-    const float c = gram_cost(x0, s.u1, aa, ab, bb, ay, by);
-    if (c < bc) { b0 = x0; b1 = s.u1; bc = c; }
-  }
-  const bool take_i = interior_ok && (gram_cost(xi0, xi1, aa, ab, bb, ay, by) < bc);
-  kd = take_i ? xi0 : b0;
-  ks = take_i ? xi1 : b1;
 }
 
 template <int L>
@@ -160,7 +122,7 @@ varpro_kernel(const float* __restrict__ ang,   // (A, V, T)
         by += bw * s_yw[sv];
       }
       float kd, ks;
-      bvls2(aa, ab, bb, ay, by, s, kd, ks);
+      brdf::bvls2(aa, ab, bb, ay, by, s.l0, s.u0, s.l1, s.u1, kd, ks);
       const float cost = kd * kd * aa + ks * ks * bb + 2.0f * kd * ks * ab -
                          2.0f * (kd * ay + ks * by);
       if (cost < best_cost) {
@@ -192,7 +154,7 @@ varpro_kernel(const float* __restrict__ ang,   // (A, V, T)
       b_db += bw * dbw;
       dd += dbw * dbw;
     }
-    bvls2(aa, ab, bb, ay, by, s, kd, ks);
+    brdf::bvls2(aa, ab, bb, ay, by, s.l0, s.u0, s.l1, s.u1, kd, ks);
     float c2 = 0.0f, gs = 0.0f;
     for (int v = 0; v < V; ++v) {
       const int sv = v * tb + tid;

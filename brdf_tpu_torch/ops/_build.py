@@ -35,7 +35,7 @@ NVCC_FLAGS = [
     # the assembler's per-kernel report (registers, spills) goes to the log
     "-Xptxas", "-v",
 ]
-SOURCES = ("varpro", "lm", "lobes_eval", "shade", "ne", "joint_ne")
+SOURCES = ("varpro", "lm", "lobes_eval", "shade", "ne", "joint_ne", "varpro_nd")
 # nvcc's output for each source built by this process
 BUILD_LOGS: dict[str, str] = {}
 

@@ -4,7 +4,7 @@ Single-device counterpart of ``brdf_tpu/parallel/fit.py``'s
 ``fit_texels_sharded`` and ``_fit_pipeline_program``. The JAX package
 traces the whole pipeline into one program over a device mesh; here
 PyTorch runs it eagerly on one device, and the fused kernels (K5 for the LM
-engines, K1 for VarPro) are the only device work of any weight.
+engines, K1 and K8 for VarPro) are the only device work of any weight.
 
 Engines, under the JAX package's names so that its presets carry over:
 
@@ -16,8 +16,14 @@ Engines, under the JAX package's names so that its presets carry over:
   takes any view count. On the CPU their plain versions run, as the JAX
   package runs its kernels in interpret mode there.
 - ``"xla"`` — the eager PyTorch tier, ``solver/lm.py::levmar_bc``. Any lobe.
-- ``"varpro"`` — the fused VarPro tier, ``ops/varpro.py`` (kernel K1), for
-  the four separable lobes.
+- ``"varpro"`` — variable projection, for every separable lobe, routed as
+  the JAX package routes it on one device: the fused 1-D tier
+  ``ops/varpro.py`` (kernel K1) for the four m=3 lobes, the fused d-D tier
+  ``ops/varpro_nd.py`` (kernel K8) for ``ward_aniso`` and
+  ``cook_torrance_aniso``, and the eager scale-profiled
+  ``solver/varpro.py::varpro_fit_fresnel_lin`` for
+  ``cook_torrance_fresnel`` (it has no kernel in either package). On the
+  CPU K1 and K8 run their plain versions.
 - ``"auto"`` — ``"pallas"`` on a CUDA device, ``"xla"`` on the CPU.
 
 Not ported yet: multi-GPU sharding (ROADMAP.md Queue A item 5, after the
@@ -34,19 +40,13 @@ from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles
 from brdf_tpu_torch.ops.lm import PALLAS_MODELS, fits_fused, lm_fit_fused
 from brdf_tpu_torch.ops.ne import lm_fit_chunked
 from brdf_tpu_torch.ops.varpro import varpro_fit_fused
+from brdf_tpu_torch.ops.varpro_nd import varpro_fit_fused_nd
 from brdf_tpu_torch.solver.init import linear_grid_init
 from brdf_tpu_torch.solver.lm import LMOptions, LMResult, levmar_bc
 from brdf_tpu_torch.solver.robust import robust_weights
-from brdf_tpu_torch.solver.varpro import _SEPARABLE
+from brdf_tpu_torch.solver.varpro import _SEPARABLE, _SEPARABLE_ND, varpro_fit_fresnel_lin
 
 ENGINES = ("auto", "pallas", "xla", "varpro")
-# the VarPro branches for m ≥ 4 lobes (parallel/fit.py:81-123) wait for the
-# ports of varpro_fit_fresnel_lin, varpro_fit_nd and kernel K8
-_VARPRO_LATER = {
-    "cook_torrance_fresnel": "ROADMAP.md Queue A item 3 (varpro_fit_fresnel_lin)",
-    "ward_aniso": "ROADMAP.md Queue A item 3 (varpro_fit_nd) and Queue B item 7 (kernel K8)",
-    "cook_torrance_aniso": "ROADMAP.md Queue A item 3 (varpro_fit_nd) and Queue B item 7 (kernel K8)",
-}
 
 
 def _resolve_engine(engine: str, device_type: str, model: str) -> str:
@@ -58,11 +58,17 @@ def _resolve_engine(engine: str, device_type: str, model: str) -> str:
 
 
 def _fit_varpro(model, angles, target, weights, p0, k, lower, upper) -> LMResult:
-    """One VarPro fit mapped onto the LM result: every iteration evaluates
-    once whether accepted or not, so the work counters report the fixed
-    schedule (k+1 evaluations, k closed-form solves)."""
-    r = varpro_fit_fused(model, angles, target, weights=weights, p0=p0, iters=k,
-                         lower=lower, upper=upper)
+    """One VarPro fit by the tier of its lobe, mapped onto the LM result:
+    every iteration evaluates once whether accepted or not, so the work
+    counters report the fixed schedule (k+1 evaluations, k closed-form
+    solves)."""
+    if model == "cook_torrance_fresnel":
+        r = varpro_fit_fresnel_lin(angles, target, weights=weights, p0=p0, iters=k,
+                                   lower=lower, upper=upper)
+    else:
+        fused = varpro_fit_fused_nd if model in _SEPARABLE_ND else varpro_fit_fused
+        r = fused(model, angles, target, weights=weights, p0=p0, iters=k,
+                  lower=lower, upper=upper)
     z = torch.zeros_like(r.chi2)
     k_full = torch.full_like(r.iters, k)
     return LMResult(
@@ -124,9 +130,10 @@ def fit_texels(
       opts: solver options; the VarPro step count is ``min(opts.itmax, 16)``.
       p0: optional (T, m) start. The LM engines run the linear grid init
         once, before round 0, when there is none. The VarPro engine instead
-        re-runs its in-kernel grid init in every round (the first and each
-        IRLS round) under that round's weights; with a start, round 0 begins
-        from it and round ``i > 0`` from round ``i − 1``'s parameters.
+        re-runs its own grid init (in the kernel for K1 and K8, the roughness
+        grid of ``varpro_fit_fresnel_lin``) in every round (the first and
+        each IRLS round) under that round's weights; with a start, round 0
+        begins from it and round ``i > 0`` from round ``i − 1``'s parameters.
       weights: optional (T, V) residual weights (0 masks a measurement).
       engine: "auto" | "pallas" | "xla" | "varpro", see the module docstring.
       warm_state: optional (μ, ν, stop) triple of (T,) tensors (e.g.
@@ -144,13 +151,10 @@ def fit_texels(
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
     dev = resolve_device(device)
     engine = _resolve_engine(engine, dev.type, model)
-    if engine == "varpro":
-        if model in _VARPRO_LATER:
-            raise NotImplementedError(
-                f"the varpro engine for {model!r} is not ported yet: {_VARPRO_LATER[model]}")
-        if model not in _SEPARABLE:
-            raise ValueError(
-                f"varpro_fit supports separable m=3 lobes {sorted(_SEPARABLE)}, got {model!r}")
+    if engine == "varpro" and model not in _SEPARABLE and model not in _SEPARABLE_ND:
+        raise ValueError(
+            f"the varpro engine supports the separable lobes "
+            f"{sorted(_SEPARABLE) + sorted(_SEPARABLE_ND)}, got {model!r}")
     spec = MODELS[model]
     if opts is None:
         opts = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=60)

@@ -471,7 +471,10 @@ def fit_per_texel(
     with ``chunk_iters > 0`` runs the solve in resumable chunks: the full
     solver state is saved between chunks and a killed run picks up where it
     stopped (``resume=False`` forces a fresh start). Both LM engines carry
-    the (μ, ν, stop) continuation state across chunks.
+    the (μ, ν, stop) continuation state across chunks; the VarPro engine,
+    whose whole continuation state is the start, begins each chunk after the
+    first from the parameters the last one returned (K1, K8 and
+    ``varpro_fit_fresnel_lin`` all skip their grid for a start).
     """
     dev = resolve_device(device)
     spec = MODELS[model]

@@ -10,5 +10,9 @@ from brdf_tpu_torch.solver.lm import (  # noqa: F401
     levmar_bc,
     levmar_lec,
 )
-from brdf_tpu_torch.solver.varpro import VarProResult, varpro_fit  # noqa: F401
+from brdf_tpu_torch.solver.varpro import (  # noqa: F401
+    VarProResult,
+    varpro_fit,
+    varpro_fit_fresnel,
+)
 from brdf_tpu_torch.solver.varpro_joint import JointVarProResult, varpro_fit_joint  # noqa: F401

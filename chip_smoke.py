@@ -83,7 +83,24 @@ per source, in parallel), then:
 20. times K6 and K7 per mode (CUDA events) with their bounds, splits one warm
     joint fit into K7, the eager loop and idle time, and times
     ``shading_value_and_grad`` beside K2 + K3 and autograd of the eager lobe;
-21. prints one JSON line of every ported kernel (K0–K7), then the card line,
+21. holds kernel K8 (the fused d-D VarPro solve, ``csrc/varpro_nd.cu``) against
+    its plain version: ward_aniso (timber-aniso box) and cook_torrance_aniso
+    at 393216 × 16, cook_torrance_fresnel at 16384 × 16, with the grid and
+    from a start, iters 0 and 16, with 4 views masked, and T=517 with V=37;
+22. drives the VarPro main path of the m ≥ 4 lobes, ``fit_per_texel(engine=
+    "varpro")`` on 131072 texels × 3 channels × 16 views with huber rounds:
+    ward_aniso in the timber-aniso box and cook_torrance_aniso, counting K8's
+    launches (3 per fit), each against the same pipeline over K8's plain
+    version (equality) and beside ``engine="auto"`` (K5) on the same problem
+    (median χ² < 1e-10; recovery reported), with tests/test_varpro.py:451's
+    bar in that test's setting (24 K8 steps against 60 K5 iterations, both
+    from the linear grid init: canonicalised recovery at least K5's less
+    0.03); then
+    cook_torrance_fresnel through the eager ``varpro_fit_fresnel_lin``
+    (recovery > 0.7, median χ² < 1e-12), with the wall time of each;
+23. times K8 (CUDA events) at round 0 of both fits with its bound, and the
+    warm fits' device profile;
+24. prints one JSON line of every ported kernel (K0–K8), then the card line,
     then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and the script exits non-zero without the ``ok`` line.
@@ -123,6 +140,7 @@ from brdf_tpu_torch.models.brdf import (  # noqa: E402
 )
 from brdf_tpu_torch.models.normalmap import joint_eval, joint_spec, tangent_basis  # noqa: E402
 from brdf_tpu_torch.ops import _build, lm as k5, ne as k6, shading as k0, varpro as k1  # noqa: E402
+from brdf_tpu_torch.ops import varpro_nd as k8  # noqa: E402
 from brdf_tpu_torch.parallel import fit as pfit  # noqa: E402
 from brdf_tpu_torch.pipeline import fit as pipeline_fit  # noqa: E402
 from brdf_tpu_torch.pipeline import render as prender  # noqa: E402
@@ -137,6 +155,7 @@ from brdf_tpu_torch.pipeline.fit import (  # noqa: E402
 )
 from brdf_tpu_torch.solver.init import linear_grid_init  # noqa: E402
 from brdf_tpu_torch.solver.lm import LMOptions  # noqa: E402
+from brdf_tpu_torch.solver.robust import saturation_weights  # noqa: E402
 from brdf_tpu_torch.utils.checkpoint import FitCheckpointer, latest_step  # noqa: E402
 
 T_BENCH, V = 131072, 16
@@ -437,15 +456,15 @@ def warm_profile(call, kernel: str) -> dict:
 
 def phase_breakdown(problems: dict, main_path: dict, fit, kernel: str) -> dict:
     """Where a warm ``fit_per_texel`` spends its time, for each fit of a main
-    path (``kernel`` is ``varpro_kernel`` or ``lm_kernel``)."""
-    saved = k1.LAUNCHES, k5.LAUNCHES
+    path (``kernel`` is ``varpro_kernel``, ``lm_kernel`` or ``varpro_nd_kernel``)."""
+    saved = k1.LAUNCHES, k5.LAUNCHES, k8.LAUNCHES
     out = {}
     for name, cfg in main_path.items():
         out[name] = warm_profile(lambda: fit(problems[name], cfg), kernel)
         log(f"breakdown {name}: wall {out[name]['wall_ms_median']:.3f} ms, device busy "
             f"{out[name]['device_busy_ms']:.3f} ms, {kernel} "
             f"{out[name]['fused_kernel_device_ms']:.3f} ms")
-    k1.LAUNCHES, k5.LAUNCHES = saved             # these launches are not the main path's
+    k1.LAUNCHES, k5.LAUNCHES, k8.LAUNCHES = saved   # these launches are not the main path's
     return out
 
 
@@ -2025,6 +2044,327 @@ def phase_ne_timing(joint_inputs) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# The fused d-D VarPro kernel K8 and the VarPro main path of the m ≥ 4 lobes
+# --------------------------------------------------------------------------
+
+ND_LOBES = ("ward_aniso", "cook_torrance_aniso", "cook_torrance_fresnel")
+# the timber-aniso preset's box (brdf_tpu/configs.py:185-194)
+TIMBER_LOWER = [0.0, 0.0, 1e-3, 1e-3, -1.5707963]
+TIMBER_UPPER = [2.0, 2.0, 1.0, 1.0, 1.5707963]
+# K8's odd shape: a ragged last block and a view count that is no power of two
+T_ODD, V_ODD = 517, 37
+ND_MAIN_PATH = {
+    # the timber-aniso preset's solver settings on the VarPro engine
+    "timber-aniso-varpro": dict(model="ward_aniso", robust="huber", robust_iters=2,
+                                lower=TIMBER_LOWER, upper=TIMBER_UPPER),
+    # the anisotropic Cook-Torrance lobe with its default box
+    "ct-aniso-varpro": dict(model="cook_torrance_aniso", robust="huber", robust_iters=2,
+                            lower=None, upper=None),
+}
+# per (view, texel) outside the lobe in K8 (csrc/varpro_nd.cu, counted as for
+# K1): the staging pass (y·w, a·w, Σ a·a, Σ a·y), a grid point's accumulation
+# (b·w, three Gram sums), a Newton evaluation's three passes (pass 1: 7;
+# pass 2: 6 + 8 per shape dimension; pass 3: 6 per dimension + 2 per H entry)
+ND_STAGE_OPS, ND_GRID_ACC_OPS = 6, 7
+# per texel: _bvls2 with the grid cost, and a Newton step's scalar work (the
+# projection coefficients, the damped solve, the step, the accept test)
+ND_GRID_SOLVE_OPS, ND_STEP_OPS = 70, 160
+
+
+def nd_newton_acc_ops(d: int) -> int:
+    return 7 + 6 + 8 * d + 6 * d + d * (d + 1)
+
+
+def k8_operations(model: str, t: int, v: int, n_grid: int, iters: int, with_p0: bool) -> float:
+    """FP32 operations K8 does on these inputs (fixed work: every lane runs
+    every step): the staging evaluation, the grid's value-only evaluations,
+    (iters + 1) evaluations with the shape partials and the three passes."""
+    value, full = LM_LOBE_OPS[model]
+    d = k0.SHADING_KERNELS[model].n_params - 2
+    grid = 0 if with_p0 else n_grid
+    per_view = (full + ND_STAGE_OPS + grid * (value + ND_GRID_ACC_OPS)
+                + (iters + 1) * (full + nd_newton_acc_ops(d)))
+    return float(t) * (v * per_view + grid * ND_GRID_SOLVE_OPS + (iters + 1) * ND_STEP_OPS)
+
+
+def k8_bytes(model: str, t: int, v: int, with_p0: bool) -> float:
+    """Each input read once (angles, y, w, the start rows), 16 rows written."""
+    spec = k0.SHADING_KERNELS[model]
+    return 4.0 * t * ((len(spec.angle_names) + 2) * v + (spec.n_params if with_p0 else 0) + 16)
+
+
+def canon_aniso(q: np.ndarray) -> np.ndarray:
+    """The exact (ax, ay, φ) ↔ (ay, ax, φ ± π/2) symmetry of the anisotropic
+    lobes folded out, φ to [−π/2, π/2) (tests/test_varpro.py::_canon_aniso)."""
+    q = np.asarray(q).copy()
+    swap = q[:, 2] < q[:, 3]
+    q[swap, 2], q[swap, 3] = q[swap, 3].copy(), q[swap, 2].copy()
+    q[swap, 4] = q[swap, 4] + np.pi / 2
+    q[:, 4] = (q[:, 4] + np.pi / 2) % np.pi - np.pi / 2
+    return q
+
+
+def aniso_recovery(p: np.ndarray, true_p: np.ndarray) -> float:
+    """tests/test_varpro.py::_aniso_recovery: within 1e-2 after
+    canonicalising, φ by absolute error and ignored where ax ≈ ay."""
+    pc, tc = canon_aniso(p), canon_aniso(true_p)
+    rel = np.abs(pc - tc) / np.maximum(np.abs(tc), 1e-3)
+    rel[:, 4] = np.abs(pc[:, 4] - tc[:, 4])
+    iso = np.abs(tc[:, 2] - tc[:, 3]) < 0.05 * np.maximum(tc[:, 2], tc[:, 3])
+    rel[iso, 4] = 0.0
+    return float((rel.max(-1) < 1e-2).mean())
+
+
+def nd_case(rng: np.random.Generator, model: str, t: int, v: int):
+    """(angles, targets, true parameters): tangent-frame angles from
+    ``synthetic_geometry`` for the anisotropic lobes, ``make_problem``'s for
+    cook_torrance_fresnel (which reads cos_rv); exact targets."""
+    if MODELS[model].tangent:
+        ang = synthetic_geometry(rng, t, v)
+    else:
+        ang, _, _ = make_problem(rng, t, v, "cook_torrance")
+    true_p = true_lm_params(rng, t, model)
+    with torch.no_grad():
+        target = MODELS[model].fn(torch.tensor(true_p, device=DEVICE), ang)
+    return ang, target, true_p
+
+
+def k8_compare(name: str, out_k: torch.Tensor, out_p: torch.Tensor, errs: list[float]) -> dict:
+    """Every output row lane for lane; the bar is equality."""
+    res = dict(lane_share=float(same(out_k, out_p).all(0).double().mean()),
+               max_abs_err=float(torch.nan_to_num(out_k - out_p).abs().max()))
+    errs.append(res["max_abs_err"])
+    log(f"K8 parity {name}: lanes equal {res['lane_share']:.6f} max|d| {res['max_abs_err']:.3g}")
+    check(res["lane_share"] == 1.0, f"K8 vs plain, {name}: {res}")
+    return res
+
+
+def phase_k8_parity(errs: list[float]) -> dict:
+    """K8 against ``varpro_nd_rows_plain`` on identical inputs on the card:
+    the anisotropic lobes at the main path's width (393216 lanes × 16 views;
+    ward_aniso in the timber-aniso box), cook_torrance_fresnel at 16384 × 16,
+    each with the grid and from a start within 10% of the truth, iters 0 and
+    16, and with 4 views masked; all three at T=517 with V=37."""
+    rng = np.random.default_rng(81)
+    cases = {}
+    mask_views = torch.randperm(V, generator=torch.Generator().manual_seed(2))[:4]
+    for model in ND_LOBES:
+        t = T_BENCH * CHANNELS if MODELS[model].tangent else T_SMALL
+        box = (TIMBER_LOWER, TIMBER_UPPER) if model == "ward_aniso" else (None, None)
+        cfg = k8.config(model, *box)
+        ang, target, true_p = nd_case(rng, model, t, V)
+        p0 = torch.tensor(true_p * rng.uniform(0.9, 1.1, true_p.shape), dtype=torch.float32,
+                          device=DEVICE)
+        mask = torch.ones_like(target)
+        mask[:, mask_views] = 0.0
+        for with_p0, iters, masked in ((False, 0, False), (False, 16, False), (True, 0, False),
+                                       (True, 16, False), (False, 16, True), (True, 16, True)):
+            inputs = k8.stack_inputs(model, ang, target, mask if masked else None,
+                                     p0 if with_p0 else None)
+            out_k = k8.varpro_nd_rows_cuda(cfg, *inputs, iters=iters)
+            torch.cuda.synchronize()
+            out_p = k8.varpro_nd_rows_plain(cfg, *inputs, iters=iters)
+            torch.cuda.synchronize()
+            check(torch.isfinite(out_k).all(), f"{model}: non-finite K8 output")
+            name = f"{model}/T={t}/p0={int(with_p0)}/iters={iters}/mask={int(masked)}"
+            cases[name] = k8_compare(name, out_k, out_p, errs)
+            cases[name]["chi2_median"] = float(out_k[2 + cfg.d].median())
+        del ang, target, p0, mask
+    for model in ND_LOBES:
+        cfg = k8.config(model)
+        ang, target, true_p = nd_case(rng, model, T_ODD, V_ODD)
+        p0 = torch.tensor(true_p, device=DEVICE)
+        for with_p0 in (False, True):
+            inputs = k8.stack_inputs(model, ang, target, None, p0 if with_p0 else None)
+            out_k = k8.varpro_nd_rows_cuda(cfg, *inputs, iters=16)
+            torch.cuda.synchronize()
+            name = f"{model}/T={T_ODD}/V={V_ODD}/p0={int(with_p0)}/iters=16"
+            cases[name] = k8_compare(name, out_k, k8.varpro_nd_rows_plain(cfg, *inputs, iters=16), errs)
+    return cases
+
+
+def nd_texel_problem(model: str, seed: int) -> tuple[TexelProblem, np.ndarray]:
+    """131072 texels × 16 views × 3 channels from known per-channel
+    parameters, on ``nd_case``'s angles; returns the truth ``(T, C, m)``."""
+    rng = np.random.default_rng(seed)
+    if MODELS[model].tangent:
+        ang = synthetic_geometry(rng, T_BENCH, V)
+    else:
+        ang, _, _ = make_problem(rng, T_BENCH, V, "cook_torrance")
+    true_p = np.stack([true_lm_params(rng, T_BENCH, model) for _ in range(CHANNELS)], 1)
+    with torch.no_grad():
+        inten = torch.stack([MODELS[model].fn(torch.tensor(true_p[:, c], device=DEVICE), ang)
+                             for c in range(CHANNELS)], -1)
+    return TexelProblem(angles=ang, intensity=inten, weights=torch.ones(T_BENCH, V, device=DEVICE),
+                        face_ids=np.arange(T_BENCH)), true_p
+
+
+def _nd_fit(problem, cfg, engine="varpro"):
+    return fit_per_texel(problem, cfg["model"], opts=LM_OPTS, device="cuda", engine=engine,
+                         robust=cfg["robust"], robust_iters=cfg["robust_iters"],
+                         lower=cfg["lower"], upper=cfg["upper"])
+
+
+def phase_nd_main_path(errs: list[float]) -> tuple[int, dict, dict]:
+    """The slice's main path: ``fit_per_texel(engine="varpro")`` on both
+    anisotropic configurations, 131072 texels × 3 channels × 16 views, huber
+    with two rounds: K8 three times a fit (K8's count is set to 0 just before
+    and read just after). Each fit against the same pipeline over K8's plain
+    version, beside ``engine="auto"`` (K5) on the same problem, and
+    ``tests/test_varpro.py:451``'s bar in that test's own setting on the same
+    lanes; then the Fresnel lobe's VarPro fit at the same size (the eager
+    ``varpro_fit_fresnel_lin``, no kernel)."""
+    problems = {name: nd_texel_problem(cfg["model"], seed=82 + i)
+                for i, (name, cfg) in enumerate(ND_MAIN_PATH.items())}
+    saved_k5 = k5.LAUNCHES
+    torch.cuda.synchronize()
+    reports, counts = {}, {}
+    k8.LAUNCHES = 0                              # the m ≥ 4 VarPro main path starts here
+    for name, cfg in ND_MAIN_PATH.items():
+        before = k8.LAUNCHES
+        t0 = time.perf_counter()
+        rep = _nd_fit(problems[name][0], cfg)
+        torch.cuda.synchronize()
+        reports[name] = (rep, time.perf_counter() - t0)
+        counts[name] = k8.LAUNCHES - before
+    launches = k8.LAUNCHES                       # ... and ends here
+    out = {}
+    for name, cfg in ND_MAIN_PATH.items():
+        rep, secs = reports[name]
+        problem, true_p = problems[name]
+        model = cfg["model"]
+        m = MODELS[model].n_params
+        res = rep.result
+        check(counts[name] == 1 + cfg["robust_iters"],
+              f"{name}: K8 launched {counts[name]} times, expected {1 + cfg['robust_iters']}")
+        check(rep.params.shape == (T_BENCH, CHANNELS, m), f"{name}: parameters of shape (T, C, m)")
+        check(torch.isfinite(res.chi2).all() and torch.isfinite(rep.params).all(),
+              f"{name}: finite parameters and chi2")
+        check(bool(((res.stop == 2) | (res.stop == 3)).all()), f"{name}: stop codes 2 or 3")
+        check(bool((res.nfev == 17).all() and (res.njev == 16).all() and (res.nlss == 16).all()),
+              f"{name}: the fixed schedule's counters")
+        spec = MODELS[model]
+        lo = torch.tensor(spec.lower if cfg["lower"] is None else cfg["lower"], device=DEVICE)
+        hi = torch.tensor(spec.upper if cfg["upper"] is None else cfg["upper"], device=DEVICE)
+        check(bool(((rep.params >= lo) & (rep.params <= hi)).all()), f"{name}: parameters inside the box")
+        before = k8.LAUNCHES
+        with mock.patch.object(k8, "varpro_nd_rows_cuda", k8.varpro_nd_rows_plain):
+            ref = _nd_fit(problem, cfg)
+        torch.cuda.synchronize()
+        check(k8.LAUNCHES == before, "the plain stand-in must not count as a launch")
+        share = report_share(rep, ref)
+        errs.append(share["max_abs_err"])
+        for key in ("stop_share", "iters_share", "param_share", "chi2_share"):
+            check(share[key] == 1.0, f"{name}: K8 path vs plain path, {key} = {share[key]}")
+        # the same problem through engine="auto" (K5)
+        t0 = time.perf_counter()
+        lm = _nd_fit(problem, cfg, engine="auto")
+        torch.cuda.synchronize()
+        lm_s = time.perf_counter() - t0
+        tp = true_p.reshape(-1, m)
+        rec = aniso_recovery(rep.params.reshape(-1, m).cpu().numpy(), tp)
+        rec_lm = aniso_recovery(lm.params.reshape(-1, m).cpu().numpy(), tp)
+        out[name] = dict(
+            model=model, launches=counts[name], fits=T_BENCH * CHANNELS, first_wall_s=secs,
+            warm_wall_ms=warm_wall_ms(lambda: _nd_fit(problem, cfg)),
+            chi2_median=float(res.chi2.median()), chi2_p90=float(res.chi2.flatten().quantile(0.9)),
+            recovery_canon=rec, iters_mean=float(res.iters.double().mean()),
+            converged_fraction=rep.converged_fraction(), **share,
+            engine_auto=dict(first_wall_s=lm_s, warm_wall_ms=warm_wall_ms(lambda: _nd_fit(problem, cfg, "auto")),
+                             recovery_canon=rec_lm, chi2_median=float(lm.result.chi2.median()),
+                             chi2_p90=float(lm.result.chi2.flatten().quantile(0.9))))
+        # tests/test_varpro.py:425-451 in its own setting, on this problem's
+        # 393216 lanes (exact targets, no weights): 24 d-D VarPro steps (K8)
+        # and 60 LM iterations with τ = 1e-10 (K5), both from the linear grid
+        # init (varpro_fit_nd's default start); its bar is recovery at least
+        # K5's less 0.03. The same 24 steps from K8's own 18-tuple grid are
+        # reported beside it.
+        ang = ShadingAngles(*(None if a is None else a.repeat_interleave(CHANNELS, 0)
+                              for a in problem.angles))
+        y = problem.intensity.permute(0, 2, 1).reshape(-1, V)
+        box = dict(lower=tuple(float(x) for x in (spec.lower if cfg["lower"] is None else cfg["lower"])),
+                   upper=tuple(float(x) for x in (spec.upper if cfg["upper"] is None else cfg["upper"])))
+        with torch.no_grad():
+            p0 = linear_grid_init(model, ang, y)
+        single = {
+            "k8_iters24": k8.varpro_fit_fused_nd(model, ang, y, p0=p0, iters=24, **box),
+            "k8_own_grid_iters24": k8.varpro_fit_fused_nd(model, ang, y, iters=24, **box),
+            "k5_itmax60": k5.lm_fit_fused(model, ang, y, p0, opts=LMOptions(
+                eps1=1e-9, eps2=1e-9, eps3=1e-14, itmax=60, tau=1e-10), **box),
+        }
+        torch.cuda.synchronize()
+        single = {key: dict(recovery_canon=aniso_recovery(r.p.cpu().numpy(), tp),
+                            chi2_median=float(r.chi2.median())) for key, r in single.items()}
+        out[name]["single_solve_test_varpro_451"] = single
+        del ang, y, p0
+        log(f"m>=4 VarPro main path {name}: {out[name]}")
+        # the main path: tests/test_varpro.py:438's χ² bar; its recovery beside
+        # K5's is reported (k = 16 and a fresh grid every round, the JAX
+        # package's schedule, leave it below K5's on timber-aniso: PERF.md)
+        check(out[name]["chi2_median"] < 1e-10, f"{name}: median chi2 {out[name]['chi2_median']}")
+        check(single["k8_iters24"]["chi2_median"] < 1e-10
+              and single["k8_iters24"]["recovery_canon"] >= single["k5_itmax60"]["recovery_canon"] - 0.03,
+              f"{name}: tests/test_varpro.py:451 on the card: {single}")
+
+    # cook_torrance_fresnel on make_problem's angles: the eager scale-profiled tier
+    cfg = dict(model="cook_torrance_fresnel", robust="huber", robust_iters=2, lower=None, upper=None)
+    problem, true_p = nd_texel_problem(cfg["model"], seed=84)
+    before = k8.LAUNCHES
+    t0 = time.perf_counter()
+    rep = _nd_fit(problem, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(k8.LAUNCHES == before, "the Fresnel lobe's VarPro fit launched K8")
+    rec = recovery(rep.params.reshape(-1, 4).cpu().numpy(), true_p.reshape(-1, 4))
+    out["ct-fresnel-varpro"] = dict(
+        model=cfg["model"], tier="solver/varpro.py::varpro_fit_fresnel_lin", fits=T_BENCH * CHANNELS,
+        first_wall_s=secs, warm_wall_ms=warm_wall_ms(lambda: _nd_fit(problem, cfg)),
+        recovery_frac=rec, chi2_median=float(rep.result.chi2.median()),
+        iters_mean=float(rep.result.iters.double().mean()))
+    log(f"Fresnel VarPro fit: {out['ct-fresnel-varpro']}")
+    check(torch.isfinite(rep.params).all() and torch.isfinite(rep.result.chi2).all(),
+          "Fresnel fit: finite parameters and chi2")
+    # tests/test_varpro.py:514-516
+    check(rec > 0.7 and out["ct-fresnel-varpro"]["chi2_median"] < 1e-12,
+          f"Fresnel VarPro fit: {out['ct-fresnel-varpro']}")
+    k5.LAUNCHES = saved_k5                       # engine="auto" is compared here, not driven
+    k8.LAUNCHES = launches
+    return launches, out, {name: prob for name, (prob, _) in problems.items()}
+
+
+def phase_k8_timing(problems: dict) -> dict:
+    """K8 (CUDA events; 20 back-to-back launches, median of 3 runs) and its
+    plain version (one run between events) at round 0 of each main-path fit:
+    393216 lanes, the saturation mask, the in-kernel grid, k=16."""
+    saved = k8.LAUNCHES
+    res = {}
+    for name, cfg in ND_MAIN_PATH.items():
+        model, problem = cfg["model"], problems[name]
+        ang = ShadingAngles(*(None if a is None else a.repeat_interleave(CHANNELS, 0)
+                              for a in problem.angles))
+        y = problem.intensity.permute(0, 2, 1).reshape(-1, V)
+        w = saturation_weights(y)
+        kcfg = k8.config(model, cfg["lower"], cfg["upper"])
+        inputs = k8.stack_inputs(model, ang, y, w)
+        t = y.shape[0]
+        ms = cuda_ms(lambda: k8.varpro_nd_rows_cuda(kcfg, *inputs, iters=16), reps=20)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        k8.varpro_nd_rows_plain(kcfg, *inputs, iters=16)
+        end.record()
+        end.synchronize()
+        res[name] = dict(model=model, texels=t, grid=len(kcfg.grid), iters=16, ms=ms,
+                         plain_ms=start.elapsed_time(end), fits_per_s=t / (ms * 1e-3),
+                         block_t=k8.block_size(inputs[0].shape[0], kcfg.d, V)[0],
+                         **bound_of(k8_bytes(model, t, V, False),
+                                    k8_operations(model, t, V, len(kcfg.grid), 16, False)))
+        log(f"K8 timing {name}: {res[name]}")
+        del ang, y, w, inputs
+    k8.LAUNCHES = saved                          # timing launches are not the main path's
+    return res
+
+
 def ptxas_numbers() -> dict:
     """What the assembler said of each kernel built by this run."""
     return {name: _build.ptxas_report(text) for name, text in _build.BUILD_LOGS.items()}
@@ -2130,6 +2470,19 @@ def main() -> int:
         joint_loop = phase_joint_closed_loop()
     lap("closed loop with fitted normals")
 
+    # K8 and the VarPro main path of the m >= 4 lobes
+    errs_k8: list[float] = []
+    k8_parity = phase_k8_parity(errs_k8)
+    lap("K8 parity")
+    errs_nd_main: list[float] = []
+    nd_launches, nd_main_path, nd_problems = phase_nd_main_path(errs_nd_main)
+    check(nd_launches > 0, "the m>=4 VarPro main path never launched K8")
+    lap("m>=4 VarPro main path")
+    k8_timing = phase_k8_timing(nd_problems)
+    nd_breakdown = phase_breakdown(nd_problems, ND_MAIN_PATH, _nd_fit, "varpro_nd_kernel")
+    del nd_problems
+    lap("K8 timing and breakdown")
+
     numbers = {
         "numbers": {
             "card": card, "kernel": "K1 varpro (csrc/varpro.cu)",
@@ -2144,7 +2497,7 @@ def main() -> int:
             "main_path_calls": {k: v for k, v in lm_timing.items() if k != "lm-general-row"},
             "main_path": lm_main_path, "main_path_warm": lm_breakdown, "chunked": chunked,
             "ptxas": {k: v for k, v in ptxas_numbers().items()
-                      if k not in ("shade", "ne", "joint_ne")},
+                      if k not in ("shade", "ne", "joint_ne", "varpro_nd")},
         },
         "numbers_render": {
             "card": card, "kernel": "K2, K3, K4 shading forward and backward (csrc/shade.cu)",
@@ -2159,6 +2512,11 @@ def main() -> int:
             "chunked_tier": chunked_tier, "main_path": joint_main, "closed_loop": joint_loop,
             "timing": ne_timing,
             "ptxas": {name: ptxas_by_mode(ptxas_numbers()[name]) for name in ("ne", "joint_ne")},
+        },
+        "numbers_varpro_nd": {
+            "card": card, "kernel": "K8 fused d-D VarPro (csrc/varpro_nd.cu)",
+            "k8_parity": k8_parity, "main_path": nd_main_path, "main_path_warm": nd_breakdown,
+            "timing": k8_timing, "ptxas": {"varpro_nd": ptxas_numbers().get("varpro_nd")},
             "seconds": time.perf_counter() - t_start,
         },
     }
@@ -2173,6 +2531,7 @@ def main() -> int:
     main_t, k0_t, k5_t = timing["main"], k0_cases["timing"], lm_timing["lm-blinn"]
     k6_t = ne_timing["k6"]["routed_fit"]["full/weighted"]
     k7_t = ne_timing["k7"]["main_path"]["full"]
+    k8_t = k8_timing["timber-aniso-varpro"]
 
     def shade_entry(name, kernel, replaces, timed):
         # K2 as the relight call gives it, K3 and K4 as the gradient step does
@@ -2190,7 +2549,7 @@ def main() -> int:
         "source": "brdf_tpu_torch/csrc/lobes.cuh",
         "replaces": "brdf_tpu/ops/shading_pallas.py:495",
         "launches": (launches + lm_launches + sum(shade_launches.values())
-                     + k6_launches + k7_launches),
+                     + k6_launches + k7_launches + nd_launches),
         "max_abs_err": max(errs_k0),
         "ms": k0_t["ms"],
         "plain_ms": k0_t["plain_ms"],
@@ -2253,6 +2612,19 @@ def main() -> int:
         "plain_ms": k7_t["plain_ms"],
         "bound_ms": k7_t["bound_ms"],
         "bound_by": k7_t["bound_by"],
+        "library_ms": None,
+    }, {
+        # round 0 of the timber-aniso VarPro fit (ward_aniso, 393216 lanes, grid, k=16)
+        "name": "varpro_nd_k8",
+        "route": "cuda",
+        "source": "brdf_tpu_torch/csrc/varpro_nd.cu",
+        "replaces": "brdf_tpu/ops/varpro_pallas.py:325",
+        "launches": nd_launches,
+        "max_abs_err": max(errs_k8 + errs_nd_main),
+        "ms": k8_t["ms"],
+        "plain_ms": k8_t["plain_ms"],
+        "bound_ms": k8_t["bound_ms"],
+        "bound_by": k8_t["bound_by"],
         "library_ms": None,
     }]}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")

@@ -189,8 +189,10 @@ def test_entry_points_raise_without_a_gpu():
 
 
 def test_later_slices_raise_not_implemented():
-    """What the port still leaves to later slices raises and names its
-    ROADMAP item; the LM engines no longer do (test_torch_fit_lm.py)."""
+    """Every engine now takes what it took in the JAX package: the LM
+    engines any lobe (test_torch_fit_lm.py), ``engine="varpro"`` every
+    separable lobe, the m ≥ 4 ones too (test_torch_fit_varpro_nd.py). What
+    neither package fits still raises."""
     problem, _, _ = _problem("blinn_phong", seed=2)
     tp = convert.from_numpy(problem)
     ang, y = tp.angles, tp.intensity[..., 0]
@@ -198,9 +200,18 @@ def test_later_slices_raise_not_implemented():
         res = tfit.fit_texels("blinn_phong", ang, y, opts=LMOptions(itmax=2), engine=engine,
                               device="cpu")
         assert res.p.shape == (T, 3)
+    # the anisotropic lobes read the six tangent-frame channels
+    rng = np.random.default_rng(4)
+    tangent = {k: torch.tensor(rng.uniform(-1.0, 1.0, (T, V)), dtype=torch.float32)
+               for k in ("cos_th", "cos_bh", "cos_tl", "cos_bl", "cos_tv", "cos_bv")}
+    ang_t = ang._replace(**tangent)
     for model in ("cook_torrance_fresnel", "ward_aniso", "cook_torrance_aniso"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfit.fit_texels(model, ang, y, engine="varpro", device="cpu")
+        res = tfit.fit_texels(model, ang_t, y, opts=LMOptions(itmax=2), engine="varpro",
+                              device="cpu")
+        m = J_MODELS[model].n_params
+        assert res.p.shape == (T, m) and res.chi2.shape == (T,)
+        assert bool(torch.isfinite(res.chi2).all()) and bool(torch.isfinite(res.p).all())
+        np.testing.assert_array_equal(res.nfev.numpy(), 3)
     with pytest.raises(ValueError, match="separable"):
         tfit.fit_texels("lambert", ang, y, engine="varpro", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):

@@ -136,6 +136,38 @@ print("clean")
     assert out.returncode == 0 and out.stdout.strip().endswith("clean"), out.stderr[-2000:]
 
 
+def test_varpro_nd_modules_import_without_building_or_loading():
+    """A fresh interpreter imports the fused d-D VarPro tier (kernel K8) and
+    the eager d-D tiers: no ``jax``, no JAX package, no ``triton``, no shared
+    library loaded, nothing compiled, no launch counted; ``varpro_nd`` is
+    among the sources that ``_build`` compiles."""
+    import subprocess
+    import sys
+
+    assert (ROOT / "brdf_tpu_torch/csrc/varpro_nd.cu").exists()
+    code = """
+import sys
+import brdf_tpu_torch
+for mod in ("ops.varpro_nd", "solver.varpro", "parallel.fit", "pipeline.fit"):
+    __import__("brdf_tpu_torch." + mod)
+from brdf_tpu_torch.ops import _build, varpro_nd
+from brdf_tpu_torch.solver import varpro_fit_fresnel
+from brdf_tpu_torch.solver.varpro import (_SEPARABLE_ND, _nnls3, _solve_damped_sym, varpro_fit_fresnel_lin,
+                                          varpro_fit_nd)
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "brdf_tpu", "PIL", "triton")]
+assert not bad, bad
+assert "varpro_nd" in _build.SOURCES and not _build.BUILD_LOGS
+assert _build.load.cache_info().currsize == 0 and varpro_nd._entry.cache_info().currsize == 0
+assert varpro_nd.LAUNCHES == 0
+assert set(_SEPARABLE_ND) == {"cook_torrance_fresnel", "ward_aniso", "cook_torrance_aniso"}
+print("clean")
+"""
+    env = {k: v for k, v in __import__("os").environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("clean"), out.stderr[-2000:]
+
+
 def test_entry_points_of_the_joint_tier_need_a_device_or_say_so():
     """``fit_joint_normalmap`` and ``fit_joint_normalmap_with_gains`` go through
     ``resolve_device``: with no card and no ``device=`` they raise. The

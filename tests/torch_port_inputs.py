@@ -91,3 +91,45 @@ def joint_problem(t, v, seed=0, base="cook_torrance", dtype=np.float32):
     true_p[:, 7:9] = rng.uniform(-0.3, 0.3, (t, 2))
     geom = dict(n=n.astype(dtype), l=l.astype(dtype), v=np.ascontiguousarray(e).astype(dtype))
     return geom, true_p.astype(dtype), rng
+
+
+def aniso_geometry(rng, t, v):
+    """``tests/test_varpro.py::_aniso_problem``'s scene in numpy: ``t``
+    surface points and unit normals, the eye on the z axis and ``v`` lights
+    on a sphere of radius 8 (physically consistent tangent-frame angles)."""
+    pts = rng.normal(size=(t, 3)).astype(np.float32) * 0.1
+    nrm = rng.normal(size=(t, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    d = rng.normal(size=(v, 3))
+    lights = (d / np.linalg.norm(d, axis=-1, keepdims=True) * 8.0).astype(np.float32)
+    return pts, nrm.astype(np.float32), np.array([0.0, 0.0, 10.0], np.float32), lights
+
+
+def canon_aniso(q):
+    """Canonicalise the exact (ax, ay, φ) ↔ (ay, ax, φ ± π/2) symmetry of the
+    anisotropic lobes (φ has period π), as ``tests/test_varpro.py`` does."""
+    q = np.asarray(q).copy()
+    swap = q[:, 2] < q[:, 3]
+    q[swap, 2], q[swap, 3] = q[swap, 3].copy(), q[swap, 2].copy()
+    q[swap, 4] = q[swap, 4] + np.pi / 2
+    q[:, 4] = (q[:, 4] + np.pi / 2) % np.pi - np.pi / 2
+    return q
+
+
+def aniso_recovery(p, true_p) -> float:
+    """``tests/test_varpro.py::_aniso_recovery``: share of lanes within 1e-2
+    after canonicalisation, φ by absolute error and ignored where ax ≈ ay."""
+    pc, tc = canon_aniso(p), canon_aniso(true_p)
+    rel = np.abs(pc - tc) / np.maximum(np.abs(tc), 1e-3)
+    rel[:, 4] = np.abs(pc[:, 4] - tc[:, 4])
+    iso = np.abs(tc[:, 2] - tc[:, 3]) < 0.05 * np.maximum(tc[:, 2], tc[:, 3])
+    rel[iso, 4] = 0.0
+    return float((rel.max(-1) < 1e-2).mean())
+
+
+def ulp_bump(rng, x):
+    """``x`` with a third of its entries moved one float32 ulp up and a third
+    one ulp down."""
+    x = np.asarray(x, np.float32)
+    bump = rng.choice([-1.0, 0.0, 1.0], x.shape).astype(np.float32)
+    return np.where(bump == 0, x, np.nextafter(x, np.copysign(np.float32(np.inf), bump)))
