@@ -343,10 +343,12 @@ __device__ __forceinline__ LobeOut<LOBE_OREN_NAYAR> oren_nayar_full(float cl, fl
 }
 
 // ang: cos_ln, cos_nh, cos_vn, cos_th, cos_bh; p: kd, ks, alpha_x, alpha_y, phi
+// c, s: cos φ and sin φ of p[4] (lobe_point)
 __device__ __forceinline__ LobeOut<LOBE_WARD_ANISO> ward_aniso_full(const float* ang,
-                                                                    const float* p) {
+                                                                    const float* p, float c,
+                                                                    float s) {
   const float cl = ang[0], cnh = ang[1], cvn = ang[2], cth = ang[3], cbh = ang[4];
-  const float kd = p[0], ks = p[1], phi = p[4];
+  const float kd = p[0], ks = p[1];
   const float ax = fmaxf(p[2], 1e-3f);
   const float ay = fmaxf(p[3], 1e-3f);
   const float live_ax = step_f(p[2] > 1e-3f);
@@ -358,8 +360,6 @@ __device__ __forceinline__ LobeOut<LOBE_WARD_ANISO> ward_aniso_full(const float*
   const float lit = step_f(litb);
   const float nh = fmaxf(litb ? cnh : 1.0f, 1e-4f);
 
-  const float c = cosf(phi);
-  const float s = sinf(phi);
   const float ht = litb ? c * cth + s * cbh : 0.0f;
   const float hb = litb ? -s * cth + c * cbh : 0.0f;
 
@@ -392,10 +392,11 @@ __device__ __forceinline__ LobeOut<LOBE_WARD_ANISO> ward_aniso_full(const float*
 
 // ang: cos_ln, cos_nh, cos_vn, cos_th, cos_bh, cos_tl, cos_bl, cos_tv, cos_bv;
 // p: kd, ks, rough_x, rough_y, phi
+// c, s: cos φ and sin φ of p[4] (lobe_point)
 __device__ __forceinline__ LobeOut<LOBE_COOK_TORRANCE_ANISO> cook_torrance_aniso_full(
-    const float* ang, const float* p) {
+    const float* ang, const float* p, float c, float s) {
   const float cl = ang[0], cnh = ang[1], cvn = ang[2];
-  const float kd = p[0], ks = p[1], phi = p[4];
+  const float kd = p[0], ks = p[1];
   const float rx = fmaxf(p[2], 1e-3f);
   const float ry = fmaxf(p[3], 1e-3f);
   const float a = rx * rx;  // α_x (Disney remap)
@@ -410,8 +411,6 @@ __device__ __forceinline__ LobeOut<LOBE_COOK_TORRANCE_ANISO> cook_torrance_aniso
   const float nh = litb ? cnh : 1.0f;
   const float nl_s = litb ? nl : 1.0f;
 
-  const float c = cosf(phi);
-  const float s = sinf(phi);
   const float ht = litb ? c * ang[3] + s * ang[4] : 0.0f;
   const float hb = litb ? -s * ang[3] + c * ang[4] : 0.0f;
   const float lt = litb ? c * ang[5] + s * ang[6] : 0.0f;
@@ -476,10 +475,28 @@ __device__ __forceinline__ LobeOut<LOBE_COOK_TORRANCE_ANISO> cook_torrance_aniso
   return o;
 }
 
-// One lobe by its compile-time selector; ang holds LobeTraits<L>::n_angles
-// channels and p LobeTraits<L>::n_params parameters.
+// What a lobe computes from its parameters alone, once per parameter point:
+// cos φ and sin φ of the anisotropic lobes (zero for the others). A kernel that
+// evaluates many views at one point computes it once and passes it to
+// lobe_full; the values are those the lobe would compute itself.
+struct LobePoint {
+  float cos_phi, sin_phi;
+};
+
 template <int L>
-__device__ __forceinline__ LobeOut<L> lobe_full(const float* ang, const float* p) {
+__device__ __forceinline__ LobePoint lobe_point(const float* p) {
+  if constexpr (L == LOBE_WARD_ANISO || L == LOBE_COOK_TORRANCE_ANISO) {
+    return LobePoint{cosf(p[4]), sinf(p[4])};
+  } else {
+    return LobePoint{0.0f, 0.0f};
+  }
+}
+
+// One lobe by its compile-time selector; ang holds LobeTraits<L>::n_angles
+// channels and p LobeTraits<L>::n_params parameters, pt = lobe_point<L>(p).
+template <int L>
+__device__ __forceinline__ LobeOut<L> lobe_full(const float* ang, const float* p,
+                                                const LobePoint& pt) {
   if constexpr (L == LOBE_BLINN_PHONG) {
     return blinn_phong_full(ang[0], ang[1], p[0], p[1], p[2]);
   } else if constexpr (L == LOBE_PHONG) {
@@ -497,11 +514,16 @@ __device__ __forceinline__ LobeOut<L> lobe_full(const float* ang, const float* p
   } else if constexpr (L == LOBE_OREN_NAYAR) {
     return oren_nayar_full(ang[0], ang[1], ang[2], p[0], p[1]);
   } else if constexpr (L == LOBE_WARD_ANISO) {
-    return ward_aniso_full(ang, p);
+    return ward_aniso_full(ang, p, pt.cos_phi, pt.sin_phi);
   } else {
     static_assert(L == LOBE_COOK_TORRANCE_ANISO, "unknown lobe");
-    return cook_torrance_aniso_full(ang, p);
+    return cook_torrance_aniso_full(ang, p, pt.cos_phi, pt.sin_phi);
   }
+}
+
+template <int L>
+__device__ __forceinline__ LobeOut<L> lobe_full(const float* ang, const float* p) {
+  return lobe_full<L>(ang, p, lobe_point<L>(p));
 }
 
 // The three-parameter form the separable solvers call.

@@ -1,5 +1,6 @@
-// Fused d-D VarPro solve for the m=4 and m=5 separable lobes, one thread per
-// texel (kernel K8).
+// Fused d-D VarPro solve for the m=4 and m=5 separable lobes (kernel K8): one
+// texel a group of S lanes of a warp, each lane holding VPL of the texel's
+// views and their per-view state in registers.
 //
 // Replaces brdf_tpu/ops/varpro_pallas.py::_varpro_nd_kernel (launched there by
 // varpro_fit_pallas_nd). It computes what that kernel computes for
@@ -15,31 +16,48 @@
 // What bounds it on an H100: operations, not bytes. A texel reads (A+2)·V
 // floats once (A = 4, 5 or 9 angle channels) and evaluates its lobe
 // (grid + 1 + iters) times per view, each evaluation 100–200 FP32 operations
-// with expf/sqrtf/sinf/cosf and divides for the anisotropic lobes. So, as in
-// K1, a block stages its texels' inputs in shared memory once (layout
-// [channel][view][texel]: the 32 threads of a warp touch 32 consecutive words,
-// coalesced loads and no bank conflicts) and solves from shared memory and
-// registers until the 16 output rows. Each thread reads only its own texel's
-// column, so the kernel needs no barrier.
+// with expf/sqrtf/sinf/cosf and divides for the anisotropic lobes.
 //
-// A Newton step needs three passes over the views, because the projection
-// coefficients x1, x2 of the curvature come from view sums of the second:
+// What held the first design back: one thread a texel, with every view's
+// inputs, b·w and the d raw ∂b_j staged in shared memory ((A + 4 + d)·V floats
+// a texel, 98–131 KB for a block of 128 texels at V=16). One or two blocks fit
+// on an SM, one or two warps a scheduler, and each thread ran one long serial
+// chain of lobe evaluations with nothing to hide its latency: 3–4% of the
+// bound.
+//
+// This design (csrc/lanegroup.cuh): a texel is solved by S lanes; lane l holds
+// views l, l + S, … (VPL slots, a template parameter, so the state arrays stay
+// in registers under #pragma unroll). A lane loads its views' angles, w, y·w
+// and a·w once from device memory (a warp's load of one slot reads S view rows
+// of 32/S consecutive texels) and keeps the last evaluation's b·w and ∂b_j
+// beside them; what a lobe computes from the shape alone (cos φ, sin φ) is
+// computed once a point, not once a view (lobes.cuh lobe_point). There is no
+// shared memory; registers set the occupancy
+// (__launch_bounds__ asks for 16 warps an SM, at most 128 registers a thread),
+// and a lane's VPL lobe evaluations are independent, so they overlap. Every
+// view sum is a lane's partial left to right, then log2 S butterfly rounds:
+// all S lanes hold the same bits, run the scalar solve (bvls2, the damped
+// solve, trust radius, accept) replicated in lockstep, and lane 0 writes the
+// 16 output rows. Lanes past T run on a clamped texel and only skip the write;
+// a slot past V runs on a clamped view and its terms are left out by select.
+// ops/varpro_nd.py::lane_layout picks (S, VPL) from V, for the wrapper and the
+// plain version alike; a lane keeps at most kLaneStateFloats floats of view
+// state, and past that the wrapper raises. There is no fallback.
+//
+// A Newton step needs three passes over a lane's views, because the
+// projection coefficients x1, x2 of the curvature come from view sums of the
+// second:
 //   1. the lobe, Σ a·b, b·b, b·y (then _bvls2 gives kd, ks);
 //   2. the residual: χ², g_j, Σ u_j·a, u_j·b with u_j = ks·∂b_j·w;
 //   3. the projected columns u_j − x1_j·a·w − x2_j·b·w: H_jk = 2 Σ col_j·col_k.
 // H is never expanded into Gram terms: that form cancels in float32 (ROADMAP
-// Queue C). Passes 2 and 3 need b and ∂b_j per view. Staging them (b·w and
-// the d raw ∂b_j, beside the angles, w, y·w and a·w: A + 4 + d floats a view
-// and texel, 16 for cook_torrance_aniso, 131 KB for 128 texels at V=16) was
-// chosen over evaluating the lobe again in passes 2 and 3, which would triple
-// the work of an operation-bound kernel; the price is occupancy, and the block
-// shrinks to 32 texels before the wrapper (ops/varpro_nd.py::block_size)
-// raises for too many views. There is no fallback.
+// Queue C).
 //
-// Rounding follows lobes.cuh's rules, so the kernel can be held against
-// ops/varpro_nd.py::varpro_nd_rows_plain lane for lane: view sums run left to
-// right from 0, Python's sums over shape dimensions run left to right, clamps
-// and maxima propagate NaN as torch.clamp and torch.maximum do.
+// Rounding follows lobes.cuh's rules (built with -fmad=false, reciprocals as
+// torch takes them, NaN-propagating clamps and maxima as torch.clamp and
+// torch.maximum), and the grid comes by value, so the kernel can be held against
+// ops/varpro_nd.py::varpro_nd_rows_plain lane for lane: its view sums follow
+// the same lane order and tree.
 //
 // Interface: plain C, loaded with ctypes (brdf_tpu_torch/ops/_build.py). The
 // kernel runs on the caller's stream, never synchronises and allocates
@@ -48,6 +66,7 @@
 #include <math.h>
 
 #include "bvls2.cuh"
+#include "lanegroup.cuh"
 #include "lobes.cuh"
 
 namespace {
@@ -55,6 +74,10 @@ namespace {
 constexpr int kMaxGrid = 32;  // grid_points=16 gives 32 d-tuples for the aniso lobes
 constexpr int kMaxShape = 3;
 constexpr float kTiny = 1e-30f;
+constexpr int kThreads = 128;          // a block: four warps, 128 / S texels
+constexpr int kMinBlocks = 4;          // 16 warps an SM: at most 128 registers a thread
+constexpr int kLaneStateFloats = 64;   // view state a lane may hold (ops/varpro_nd.py)
+constexpr int kGridBatch = 2;          // grid points evaluated side by side
 
 struct GridArgs {
   float shape[kMaxGrid][kMaxShape];  // grid d-tuples (f32)
@@ -70,8 +93,15 @@ struct SolveArgs {
 
 using brdf::bvls2;
 using brdf::clip_nan;
+using brdf::group_sum;
 using brdf::max_nan;
 using brdf::min_nan;
+
+// the most views a lane holds: angles, w, y·w, a·w, b·w and d ∂b_j a view
+template <int L, int D>
+__host__ __device__ constexpr int max_vpl() {
+  return kLaneStateFloats / (brdf::LobeTraits<L>::n_angles + 4 + D);
+}
 
 // upper-triangle index of (j, k), j ≤ k, in the order (0,0), (0,1), …, (d−1,d−1)
 template <int D>
@@ -113,93 +143,102 @@ __device__ __forceinline__ bool solve_damped_sym(const float (&h)[D * (D + 1) / 
   }
 }
 
-template <int L, int D>
-__global__ void __launch_bounds__(128)
+template <int L, int D, int VPL>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 varpro_nd_kernel(const float* __restrict__ ang,   // (A, V, T)
                  const float* __restrict__ y,     // (V, T)
                  const float* __restrict__ w,     // (V, T)
                  const float* __restrict__ p0,    // (m, T) caller start, or null
                  float* __restrict__ out,         // (16, T)
-                 int T, int V, GridArgs grid, SolveArgs s) {
+                 int T, int V, int S, GridArgs grid, SolveArgs s) {
   constexpr int A = brdf::LobeTraits<L>::n_angles;
   constexpr int NP = brdf::LobeTraits<L>::n_params;
   constexpr int NH = D * (D + 1) / 2;
   static_assert(NP == D + 2, "a separable lobe: kd, ks and d shape parameters");
-  extern __shared__ float smem[];
-  const int tb = blockDim.x;
-  const int tid = threadIdx.x;
-  const long t = static_cast<long>(blockIdx.x) * tb + tid;
-  if (t >= T) return;  // ragged edge: masked, never written
+  static_assert(VPL >= 1 && VPL <= max_vpl<L, D>(), "a lane's view state fits its budget");
+  const brdf::LaneGroup lg = brdf::lane_group(S);
+  // ragged edge: lanes past T stay for the shuffles on the last texel, unwritten
+  const bool live = lg.item < T;
+  const long t = live ? lg.item : T - 1;
+  const long vt = static_cast<long>(V) * T;
 
-  // [channel][view][texel]; each thread owns one texel column
-  float* s_ang = smem;                 // A·V·tb
-  float* s_w = s_ang + A * V * tb;     // w
-  float* s_yw = s_w + V * tb;          // y·w
-  float* s_aw = s_yw + V * tb;         // a·w (shape-free diffuse basis)
-  float* s_bw = s_aw + V * tb;         // b·w of the last evaluation
-  float* s_db = s_bw + V * tb;         // D · ∂b/∂shape_j of the last evaluation
-
-  float av[A];
+  // this lane's views k·S + lane; only the last slot can fall past V
+  float av[VPL][A], wv[VPL], yw[VPL], aw[VPL], bw[VPL], db[VPL][D];
+  bool in_v[VPL];
   float p[NP];
   p[0] = 0.0f;
   p[1] = 1.0f;
 #pragma unroll
   for (int j = 0; j < D; ++j) p[2 + j] = grid.shape[0][j];
 
-  float aa = 0.0f, ay = 0.0f;
-  for (int v = 0; v < V; ++v) {
-    const long gi = static_cast<long>(v) * T + t;
-    const int sv = v * tb + tid;
+  const brdf::LobePoint pt0 = brdf::lobe_point<L>(p);
+  float a_sums[2] = {0.0f, 0.0f};  // Σ a·a, Σ a·y
 #pragma unroll
-    for (int a = 0; a < A; ++a) {
-      av[a] = ang[static_cast<long>(a) * V * T + gi];
-      s_ang[a * V * tb + sv] = av[a];
-    }
-    const float wv = w[gi];
-    const float ywv = y[gi] * wv;
+  for (int k = 0; k < VPL; ++k) {
+    const int v = k * S + lg.lane;
+    in_v[k] = v < V;
+    const long gi = static_cast<long>(in_v[k] ? v : V - 1) * T + t;
+#pragma unroll
+    for (int a = 0; a < A; ++a) av[k][a] = ang[a * vt + gi];
+    wv[k] = w[gi];
+    yw[k] = y[gi] * wv[k];
     // the diffuse basis is shape-independent for every separable lobe
-    const float aw = brdf::lobe_full<L>(av, p).dp[0] * wv;
-    s_w[sv] = wv;
-    s_yw[sv] = ywv;
-    s_aw[sv] = aw;
-    aa += aw * aw;
-    ay += aw * ywv;
+    aw[k] = brdf::lobe_full<L>(av[k], p, pt0).dp[0] * wv[k];
+    if (in_v[k]) {
+      a_sums[0] += aw[k] * aw[k];
+      a_sums[1] += aw[k] * yw[k];
+    }
   }
-
-  auto load_angles = [&](int v) {
-#pragma unroll
-    for (int a = 0; a < A; ++a) av[a] = s_ang[a * V * tb + v * tb + tid];
-  };
+  group_sum(a_sums, S);
+  const float aa = a_sums[0], ay = a_sums[1];
 
   float shape[D];
   if (p0 != nullptr) {
 #pragma unroll
     for (int j = 0; j < D; ++j) shape[j] = clip_nan(p0[(2L + j) * T + t], s.lo_s[j], s.hi_s[j]);
   } else {
-    // grid init: the Gram-form cost only ranks the points
+    // grid init: the Gram-form cost only ranks the points. kGridBatch points
+    // at a time, so that their lobe evaluations, sums and solves overlap; they
+    // are compared in the grid's order, as one at a time would be.
 #pragma unroll
     for (int j = 0; j < D; ++j) shape[j] = grid.shape[0][j];
     float best_cost = INFINITY;
-    for (int gi = 0; gi < grid.n; ++gi) {
+    for (int g0 = 0; g0 < grid.n; g0 += kGridBatch) {
+      float b_sums[3 * kGridBatch];  // per point: Σ a·b, b·b, b·y
 #pragma unroll
-      for (int j = 0; j < D; ++j) p[2 + j] = grid.shape[gi][j];
-      float ab = 0.0f, bb = 0.0f, by = 0.0f;
-      for (int v = 0; v < V; ++v) {
-        load_angles(v);
-        const int sv = v * tb + tid;
-        const float bw = brdf::lobe_full<L>(av, p).i * s_w[sv];
-        ab += s_aw[sv] * bw;
-        bb += bw * bw;
-        by += bw * s_yw[sv];
+      for (int i = 0; i < 3 * kGridBatch; ++i) b_sums[i] = 0.0f;
+#pragma unroll
+      for (int q = 0; q < kGridBatch; ++q) {
+        const int gi = min(g0 + q, grid.n - 1);  // past the last point: a copy, never compared
+        float pq[NP];
+        pq[0] = 0.0f;
+        pq[1] = 1.0f;
+#pragma unroll
+        for (int j = 0; j < D; ++j) pq[2 + j] = grid.shape[gi][j];
+        const brdf::LobePoint pt = brdf::lobe_point<L>(pq);
+#pragma unroll
+        for (int k = 0; k < VPL; ++k) {
+          const float bwk = brdf::lobe_full<L>(av[k], pq, pt).i * wv[k];
+          if (in_v[k]) {
+            b_sums[3 * q] += aw[k] * bwk;
+            b_sums[3 * q + 1] += bwk * bwk;
+            b_sums[3 * q + 2] += bwk * yw[k];
+          }
+        }
       }
-      float kd, ks;
-      bvls2(aa, ab, bb, ay, by, s.l0, s.u0, s.l1, s.u1, kd, ks);
-      const float cost = kd * kd * aa + ks * ks * bb + 2.0f * kd * ks * ab -
-                         2.0f * (kd * ay + ks * by);
-      if (cost < best_cost) {
+      group_sum(b_sums, S);
 #pragma unroll
-        for (int j = 0; j < D; ++j) shape[j] = grid.shape[gi][j];
-        best_cost = cost;
+      for (int q = 0; q < kGridBatch; ++q) {
+        const float ab = b_sums[3 * q], bb = b_sums[3 * q + 1], by = b_sums[3 * q + 2];
+        float kd, ks;
+        bvls2(aa, ab, bb, ay, by, s.l0, s.u0, s.l1, s.u1, kd, ks);
+        const float cost = kd * kd * aa + ks * ks * bb + 2.0f * kd * ks * ab -
+                           2.0f * (kd * ay + ks * by);
+        if (g0 + q < grid.n && cost < best_cost) {
+#pragma unroll
+          for (int j = 0; j < D; ++j) shape[j] = grid.shape[g0 + q][j];
+          best_cost = cost;
+        }
       }
     }
   }
@@ -210,65 +249,74 @@ varpro_nd_kernel(const float* __restrict__ ang,   // (A, V, T)
                      float& kd, float& ks) {
 #pragma unroll
     for (int j = 0; j < D; ++j) p[2 + j] = sh[j];
-    float ab = 0.0f, bb = 0.0f, by = 0.0f;
-    for (int v = 0; v < V; ++v) {  // pass 1: the lobe and the Gram sums of b
-      load_angles(v);
-      const int sv = v * tb + tid;
-      const brdf::LobeOut<L> o = brdf::lobe_full<L>(av, p);
-      const float bw = o.i * s_w[sv];
-      s_bw[sv] = bw;
+    const brdf::LobePoint pt = brdf::lobe_point<L>(p);
+    float b_sums[3] = {0.0f, 0.0f, 0.0f};  // pass 1: the lobe and the Gram sums of b
 #pragma unroll
-      for (int j = 0; j < D; ++j) s_db[j * V * tb + sv] = o.dp[2 + j];
-      ab += s_aw[sv] * bw;
-      bb += bw * bw;
-      by += bw * s_yw[sv];
-    }
-    bvls2(aa, ab, bb, ay, by, s.l0, s.u0, s.l1, s.u1, kd, ks);
-    float c2 = 0.0f, gs[D], ua[D], ub[D];
+    for (int k = 0; k < VPL; ++k) {
+      const brdf::LobeOut<L> o = brdf::lobe_full<L>(av[k], p, pt);
+      bw[k] = o.i * wv[k];
 #pragma unroll
-    for (int j = 0; j < D; ++j) gs[j] = ua[j] = ub[j] = 0.0f;
-    for (int v = 0; v < V; ++v) {  // pass 2: the residual and the projections' sums
-      const int sv = v * tb + tid;
-      const float wv = s_w[sv], aw = s_aw[sv], bw = s_bw[sv];
-      const float rw = s_yw[sv] - kd * aw - ks * bw;
-      c2 += rw * rw;
-#pragma unroll
-      for (int j = 0; j < D; ++j) {
-        const float u = ks * s_db[j * V * tb + sv] * wv;
-        gs[j] += rw * u;
-        ua[j] += u * aw;
-        ub[j] += u * bw;
+      for (int j = 0; j < D; ++j) db[k][j] = o.dp[2 + j];
+      if (in_v[k]) {
+        b_sums[0] += aw[k] * bw[k];
+        b_sums[1] += bw[k] * bw[k];
+        b_sums[2] += bw[k] * yw[k];
       }
     }
-    chi2 = c2;
+    group_sum(b_sums, S);
+    const float ab = b_sums[0], bb = b_sums[1], by = b_sums[2];
+    bvls2(aa, ab, bb, ay, by, s.l0, s.u0, s.l1, s.u1, kd, ks);
+    // pass 2: χ², then per shape dimension Σ r·u_j, Σ u_j·a, Σ u_j·b
+    float r_sums[1 + 3 * D];
+#pragma unroll
+    for (int i = 0; i < 1 + 3 * D; ++i) r_sums[i] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const float rw = yw[k] - kd * aw[k] - ks * bw[k];
+      if (in_v[k]) r_sums[0] += rw * rw;
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        const float u = ks * db[k][j] * wv[k];
+        if (in_v[k]) {
+          r_sums[1 + j] += rw * u;
+          r_sums[1 + D + j] += u * aw[k];
+          r_sums[1 + 2 * D + j] += u * bw[k];
+        }
+      }
+    }
+    group_sum(r_sums, S);
+    chi2 = r_sums[0];
     const float det = aa * bb - ab * ab;
     const bool det_ok = det > kTiny;
     const float det_s = det_ok ? det : 1.0f;
     float x1[D], x2[D];
 #pragma unroll
     for (int j = 0; j < D; ++j) {
-      g[j] = -2.0f * gs[j];
-      x1[j] = det_ok ? (bb * ua[j] - ab * ub[j]) / det_s : 0.0f;
-      x2[j] = det_ok ? (aa * ub[j] - ab * ua[j]) / det_s : 0.0f;
+      const float ua = r_sums[1 + D + j], ub = r_sums[1 + 2 * D + j];
+      g[j] = -2.0f * r_sums[1 + j];
+      x1[j] = det_ok ? (bb * ua - ab * ub) / det_s : 0.0f;
+      x2[j] = det_ok ? (aa * ub - ab * ua) / det_s : 0.0f;
     }
     float hs[NH];
 #pragma unroll
     for (int i = 0; i < NH; ++i) hs[i] = 0.0f;
-    for (int v = 0; v < V; ++v) {  // pass 3: the projected columns
-      const int sv = v * tb + tid;
-      const float wv = s_w[sv], aw = s_aw[sv], bw = s_bw[sv];
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {  // pass 3: the projected columns
       float col[D];
 #pragma unroll
       for (int j = 0; j < D; ++j) {
-        const float u = ks * s_db[j * V * tb + sv] * wv;
-        col[j] = u - x1[j] * aw - x2[j] * bw;
+        const float u = ks * db[k][j] * wv[k];
+        col[j] = u - x1[j] * aw[k] - x2[j] * bw[k];
       }
+      if (in_v[k]) {
 #pragma unroll
-      for (int j = 0; j < D; ++j) {
+        for (int j = 0; j < D; ++j) {
 #pragma unroll
-        for (int k = j; k < D; ++k) hs[hidx<D>(j, k)] += col[j] * col[k];
+          for (int i = j; i < D; ++i) hs[hidx<D>(j, i)] += col[j] * col[i];
+        }
       }
     }
+    group_sum(hs, S);
 #pragma unroll
     for (int i = 0; i < NH; ++i) h[i] = 2.0f * hs[i];
   };
@@ -313,6 +361,7 @@ varpro_nd_kernel(const float* __restrict__ ang,   // (A, V, T)
     }
   }
 
+  if (!live || lg.lane != 0) return;
   float g_abs = fabsf(g[0]);
 #pragma unroll
   for (int j = 1; j < D; ++j) g_abs = max_nan(g_abs, fabsf(g[j]));
@@ -327,33 +376,49 @@ varpro_nd_kernel(const float* __restrict__ ang,   // (A, V, T)
   for (int r = 6 + D; r < 16; ++r) out[static_cast<long>(r) * T + t] = 0.0f;
 }
 
-template <int L, int D>
-int launch(const float* ang, const float* y, const float* w, const float* p0, float* out,
-           int T, int V, int block_t, int smem_bytes, const GridArgs& grid, const SolveArgs& s,
-           cudaStream_t stream) {
-  constexpr int A = brdf::LobeTraits<L>::n_angles;
-  if (smem_bytes != (A + 4 + D) * V * block_t * static_cast<int>(sizeof(float)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      varpro_nd_kernel<L, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (T + block_t - 1) / block_t;
-  varpro_nd_kernel<L, D><<<blocks, block_t, smem_bytes, stream>>>(ang, y, w, p0, out, T, V,
-                                                                  grid, s);
-  return static_cast<int>(cudaGetLastError());
+using KernelFn = void (*)(const float*, const float*, const float*, const float*, float*, int,
+                          int, int, GridArgs, SolveArgs);
+
+// the instantiation for VPL = vpl views a lane, or null past the lobe's budget
+template <int L, int D, int VPL = 1>
+KernelFn kernel_for(int vpl) {
+  if constexpr (VPL > max_vpl<L, D>()) {
+    return nullptr;
+  } else {
+    if (vpl == VPL) return varpro_nd_kernel<L, D, VPL>;
+    return kernel_for<L, D, VPL + 1>(vpl);
+  }
+}
+
+KernelFn pick_kernel(int lobe, int d, int vpl) {
+  switch (lobe) {
+    case brdf::LOBE_COOK_TORRANCE_FRESNEL:
+      return d == 2 ? kernel_for<brdf::LOBE_COOK_TORRANCE_FRESNEL, 2>(vpl) : nullptr;
+    case brdf::LOBE_WARD_ANISO:
+      return d == 3 ? kernel_for<brdf::LOBE_WARD_ANISO, 3>(vpl) : nullptr;
+    case brdf::LOBE_COOK_TORRANCE_ANISO:
+      return d == 3 ? kernel_for<brdf::LOBE_COOK_TORRANCE_ANISO, 3>(vpl) : nullptr;
+    default:
+      return nullptr;
+  }
 }
 
 }  // namespace
 
 extern "C" int brdf_varpro_nd_fit(int lobe, const float* ang, const float* y, const float* w,
-                                  const float* p0, float* out, int T, int V, int block_t,
-                                  int smem_bytes, const float* grid_shape, int n_grid, int d,
+                                  const float* p0, float* out, int T, int V, int lanes,
+                                  int vpl, const float* grid_shape, int n_grid, int d,
                                   float l0, float u0, float l1, float u1, const float* lo_s,
                                   const float* hi_s, float span, float trust0, float conv_tol,
                                   int iters, void* stream) {
-  if (n_grid < 1 || n_grid > kMaxGrid || d < 2 || d > kMaxShape || block_t < 32 ||
-      block_t > 128 || block_t % 32)
+  // lanes: a power of two dividing 32; vpl: ceil(V / lanes), so every lane
+  // holds a view in each slot but the last
+  const bool lanes_ok = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
+  if (n_grid < 1 || n_grid > kMaxGrid || d < 2 || d > kMaxShape || T < 1 || V < 1 || !lanes_ok ||
+      vpl < 1 || static_cast<long>(vpl) * lanes < V || static_cast<long>(vpl - 1) * lanes >= V)
     return static_cast<int>(cudaErrorInvalidValue);
+  const KernelFn kernel = pick_kernel(lobe, d, vpl);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   GridArgs grid;
   for (int i = 0; i < kMaxGrid; ++i)
     for (int j = 0; j < kMaxShape; ++j)
@@ -372,21 +437,27 @@ extern "C" int brdf_varpro_nd_fit(int lobe, const float* ang, const float* y, co
   s.trust0 = trust0;
   s.conv_tol = conv_tol;
   s.iters = iters;
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (lobe) {
-    case brdf::LOBE_COOK_TORRANCE_FRESNEL:
-      if (d != 2) return static_cast<int>(cudaErrorInvalidValue);
-      return launch<brdf::LOBE_COOK_TORRANCE_FRESNEL, 2>(ang, y, w, p0, out, T, V, block_t,
-                                                         smem_bytes, grid, s, st);
-    case brdf::LOBE_WARD_ANISO:
-      if (d != 3) return static_cast<int>(cudaErrorInvalidValue);
-      return launch<brdf::LOBE_WARD_ANISO, 3>(ang, y, w, p0, out, T, V, block_t, smem_bytes,
-                                              grid, s, st);
-    case brdf::LOBE_COOK_TORRANCE_ANISO:
-      if (d != 3) return static_cast<int>(cudaErrorInvalidValue);
-      return launch<brdf::LOBE_COOK_TORRANCE_ANISO, 3>(ang, y, w, p0, out, T, V, block_t,
-                                                       smem_bytes, grid, s, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const long threads = static_cast<long>(T) * lanes;
+  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(ang, y, w, p0, out, T, V,
+                                                                     lanes, grid, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// What the launched instantiation gets on this card: out[0] resident blocks an
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at kThreads threads and no
+// shared memory), out[1] registers a thread, out[2] local memory bytes a
+// thread (stack and spills), out[3] threads a block.
+extern "C" int brdf_varpro_nd_occupancy(int lobe, int d, int vpl, int* out) {
+  const KernelFn kernel = pick_kernel(lobe, d, vpl);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = kThreads;
+  return 0;
 }

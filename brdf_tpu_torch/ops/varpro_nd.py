@@ -23,6 +23,13 @@ and transposes once to the views-major ``(V, T)`` layout both versions run
 on. For CUDA tensors it launches K8 (and counts the launch in
 :data:`LAUNCHES`); for CPU tensors it runs the plain version. It never falls
 back from one to the other.
+
+K8 solves a texel with a group of S lanes, each holding VPL of its views
+(:func:`lane_layout`), and sums over views in that layout's fixed order
+(:func:`group_sum`): each lane's views left to right, then a pairwise tree
+over the lanes. The plain version sums in the same order, so the two agree
+bit for bit on the card; the Pallas kernel's ``jnp.sum`` order is XLA's, and
+the tests hold the plain version to it at the solve's float32 chaos.
 """
 
 from __future__ import annotations
@@ -37,7 +44,6 @@ import torch
 from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles
 from brdf_tpu_torch.ops import _build
 from brdf_tpu_torch.ops.shading import SHADING_KERNELS
-from brdf_tpu_torch.ops.varpro import SMEM_LIMIT
 from brdf_tpu_torch.solver.init import default_shape_grid
 from brdf_tpu_torch.solver.varpro import (
     _SEPARABLE_ND,
@@ -51,6 +57,17 @@ _TINY = 1e-30
 # the kernel's limit on grid d-tuples (csrc/varpro_nd.cu kMaxGrid):
 # grid_points=16 gives 32 for the anisotropic lobes
 MAX_GRID = 32
+# K8's block: four warps (csrc/varpro_nd.cu kThreads)
+THREADS = 128
+# The view state a lane may hold, in floats: angles, w, y·w, a·w, b·w and the
+# d ∂b/∂shape_j of each of its views (csrc/varpro_nd.cu kLaneStateFloats).
+# Past 32 lanes of that the kernel has no layout and the wrapper raises.
+LANE_STATE_FLOATS = 64
+# Views a lane holds while a group of up to 32 lanes can take the views:
+# fewer mean more lanes a texel, and so more copies of the scalar solve; more
+# mean more registers a thread and fewer warps an SM. Chosen on an H100 at
+# V=16 from (S, VPL) = (4, 4), (8, 2) and (16, 1) (PERF.md, the K8 findings).
+VIEWS_PER_LANE = 2
 # Kernel launches made by varpro_nd_rows_cuda since the count was last reset.
 LAUNCHES = 0
 
@@ -112,13 +129,10 @@ def varpro_nd_rows_plain(cfg: VarProNDConfig, ang, y, w, p0_rows, iters: int) ->
     zero = torch.zeros_like(one)
     l0, u0, l1, u1 = cfg.box
     span = cfg.span
+    lanes, vpl, _ = lane_layout(ang.shape[0], d, ang.shape[1])
 
     def rsum(x):
-        # views summed left to right, in the kernel's order (see ops/shading.py)
-        acc = x[0:1]
-        for v in range(1, x.shape[0]):
-            acc = acc + x[v:v + 1]
-        return acc
+        return group_sum(x, lanes, vpl)
 
     def eval_shape(rows):
         """One lobe evaluation → (a, b, (∂b/∂shape_j)_j), each (V, T)."""
@@ -201,29 +215,71 @@ def varpro_nd_rows_plain(cfg: VarProNDConfig, ang, y, w, p0_rows, iters: int) ->
     return torch.cat(rows + [zero] * (16 - len(rows)))
 
 
-def block_size(n_angles: int, d: int, v: int) -> tuple[int, int]:
-    """(texels per block, shared-memory bytes): the block stages
-    ``(A + 4 + d)·V`` floats per texel (angles, w, y·w, a·w, b·w and the d
-    ∂b/∂shape_j); it shrinks in steps of 32 texels until that fits, and raises
-    when even 32 do not. There is no fallback."""
-    tb = 128       # the kernel's __launch_bounds__
-    per_texel = (n_angles + 4 + d) * v * 4
-    while tb >= 32:
-        if per_texel * tb <= SMEM_LIMIT:
-            return tb, per_texel * tb
-        tb -= 32
-    raise ValueError(
-        f"V={v} views do not fit the fused d-D VarPro kernel's shared memory "
-        f"({per_texel * 32} bytes for 32 texels > {SMEM_LIMIT})")
+def max_views(n_angles: int, d: int) -> int:
+    """The most views K8 takes: 32 lanes a texel, each within
+    ``LANE_STATE_FLOATS`` of view state (``n_angles + 4 + d`` floats a view)."""
+    return 32 * (LANE_STATE_FLOATS // (n_angles + 4 + d))
+
+
+def lane_layout(n_angles: int, d: int, v: int) -> tuple[int, int, int]:
+    """K8's layout for ``v`` views → ``(S, VPL, block_t)``: S lanes a texel
+    (a power of two that divides 32), VPL = ⌈v / S⌉ views a lane (lane l holds
+    views l, l + S, …), ``block_t`` = 128 / S texels a block. S is the
+    smallest that gives a lane at most ``VIEWS_PER_LANE`` views, or 32; past
+    :func:`max_views` it raises. There is no fallback."""
+    if not 1 <= v <= max_views(n_angles, d):
+        raise ValueError(
+            f"V={v} views do not fit the fused d-D VarPro kernel's registers "
+            f"(1 to {max_views(n_angles, d)} views for {n_angles + 4 + d} floats a view)")
+    lanes = 1
+    while lanes < 32 and -(-v // lanes) > VIEWS_PER_LANE:
+        lanes *= 2
+    return lanes, -(-v // lanes), THREADS // lanes
+
+
+def group_sum(x: torch.Tensor, lanes: int, vpl: int) -> torch.Tensor:
+    """K8's sum of ``x`` over its leading (view) axis → shape ``(1, ...)``:
+    lane l's partial adds views l, l + lanes, … left to right from 0 (a slot
+    past the last view leaves the partial as it is); the partials combine as
+    the pairwise tree ((p0 + p1) + (p2 + p3)) + …, the bits every lane of the
+    kernel's XOR butterfly ends with (csrc/lanegroup.cuh)."""
+    v = x.shape[0]
+    acc = torch.zeros((lanes,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    for k in range(vpl):
+        n = min(lanes, v - k * lanes)       # lanes whose slot k holds a view
+        part = acc[:n] + x[k * lanes:k * lanes + n]
+        acc = part if n == lanes else torch.cat([part, acc[n:]])
+    while acc.shape[0] > 1:
+        acc = acc[0::2] + acc[1::2]
+    return acc
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    fn = _build.load("varpro_nd").brdf_varpro_nd_fit
+    lib = _build.load("varpro_nd")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.brdf_varpro_nd_fit
     fn.argtypes = [i, p, p, p, p, p, i, i, i, i, p, i, i, f, f, f, f, p, p, f, f, f, i, p]
     fn.restype = ctypes.c_int
-    return fn
+    occ = lib.brdf_varpro_nd_occupancy
+    occ.argtypes = [i, i, i, p]
+    occ.restype = ctypes.c_int
+    return fn, occ
+
+
+def occupancy(model: str, v: int) -> dict:
+    """What K8's instantiation for ``model`` at ``v`` views gets on the
+    current card: its layout, resident blocks and warps an SM, registers and
+    local-memory bytes a thread (the CUDA runtime's own figures)."""
+    spec = SHADING_KERNELS[model]
+    d = spec.n_params - 2
+    lanes, vpl, block_t = lane_layout(len(spec.angle_names), d, v)
+    res = (ctypes.c_int * 4)()
+    err = _entry()[1](spec.lobe_id, d, vpl, res)
+    if err != 0:
+        raise RuntimeError(f"K8 occupancy query failed with cudaError {err}")
+    return dict(lanes=lanes, views_per_lane=vpl, block_t=block_t, blocks_per_sm=res[0],
+                warps_per_sm=res[0] * res[3] // 32, registers=res[1], local_bytes=res[2])
 
 
 def varpro_nd_rows_cuda(cfg: VarProNDConfig, ang, y, w, p0_rows, iters: int) -> torch.Tensor:
@@ -243,19 +299,19 @@ def varpro_nd_rows_cuda(cfg: VarProNDConfig, ang, y, w, p0_rows, iters: int) -> 
         raise ValueError(f"K8 takes a ({spec.n_params}, T) start, got {tuple(p0_rows.shape)}")
     if t >= 2**31 // 16:
         raise ValueError(f"K8 indexes texels with 32-bit ints; T={t} is too large")
+    lanes, vpl, _ = lane_layout(a_count, cfg.d, v)
     out = torch.empty((16, t), dtype=torch.float32, device=ang.device)
     if t == 0:
         return out
-    tb, smem = block_size(a_count, cfg.d, v)
     n = len(cfg.grid)
     grid = (ctypes.c_float * (n * cfg.d))(*(x for row in cfg.grid for x in row))
     lo_s = (ctypes.c_float * cfg.d)(*cfg.lo_s)
     hi_s = (ctypes.c_float * cfg.d)(*cfg.hi_s)
     stream = torch.cuda.current_stream(ang.device).cuda_stream
-    err = _entry()(
+    err = _entry()[0](
         spec.lobe_id, ang.data_ptr(), y.data_ptr(), w.data_ptr(),
         None if p0_rows is None else p0_rows.data_ptr(), out.data_ptr(),
-        t, v, tb, smem, grid, n, cfg.d, *cfg.box, lo_s, hi_s,
+        t, v, lanes, vpl, grid, n, cfg.d, *cfg.box, lo_s, hi_s,
         cfg.span, 0.25 * cfg.span, 1e-6 * cfg.span, int(iters), stream,
     )
     if err != 0:

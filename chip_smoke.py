@@ -86,7 +86,9 @@ per source, in parallel), then:
 21. holds kernel K8 (the fused d-D VarPro solve, ``csrc/varpro_nd.cu``) against
     its plain version: ward_aniso (timber-aniso box) and cook_torrance_aniso
     at 393216 × 16, cook_torrance_fresnel at 16384 × 16, with the grid and
-    from a start, iters 0 and 16, with 4 views masked, and T=517 with V=37;
+    from a start, iters 0 and 16, with 4 views masked, T=517 with V=37, and
+    one case for each further lane layout (V = 1, 2 and each lobe's largest);
+    one view past the largest raises;
 22. drives the VarPro main path of the m ≥ 4 lobes, ``fit_per_texel(engine=
     "varpro")`` on 131072 texels × 3 channels × 16 views with huber rounds:
     ward_aniso in the timber-aniso box and cook_torrance_aniso, counting K8's
@@ -98,8 +100,9 @@ per source, in parallel), then:
     0.03); then
     cook_torrance_fresnel through the eager ``varpro_fit_fresnel_lin``
     (recovery > 0.7, median χ² < 1e-12), with the wall time of each;
-23. times K8 (CUDA events) at round 0 of both fits with its bound, and the
-    warm fits' device profile;
+23. times K8 (CUDA events) at round 0 of both fits with its bound, lane
+    layout, warps an SM, registers and spills, and at three layouts on the
+    same inputs; and the warm fits' device and host profile;
 24. prints one JSON line of every ported kernel (K0–K8), then the card line,
     then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -116,7 +119,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import ExitStack
+from contextlib import ExitStack, nullcontext
 from unittest import mock
 
 import numpy as np
@@ -433,12 +436,20 @@ def warm_profile(call, kernel: str) -> dict:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # a small kernel on each side of the call: without them a trace has
+        # lost the launch at its edge (one of a fit's three K8 launches)
+        torch.zeros(1, device=DEVICE).add_(1.0)
         call()
+        torch.zeros(1, device=DEVICE).add_(1.0)
         torch.cuda.synchronize()
     kernels = sorted(
         ((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
          if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
         reverse=True)
+    # the host's own time by operator (self CPU time, inflated by the profiler)
+    host = sorted(((e.self_cpu_time_total, e.key, e.count) for e in prof.key_averages()
+                   if not str(e.device_type).endswith("CUDA") and e.self_cpu_time_total > 0),
+                  reverse=True)
     busy_ms = sum(k[0] for k in kernels) / 1e3
     fused_ms = sum(k[0] for k in kernels if kernel in k[1]) / 1e3
     n_launches = sum(k[2] for k in kernels)
@@ -451,7 +462,9 @@ def warm_profile(call, kernel: str) -> dict:
         fused_kernel_share=fused_ms / busy_ms if busy_ms else None,
         device_idle_share=1.0 - busy_ms / wall if busy_ms else None,
         top_kernels=[dict(name=k[:90], device_ms=us / 1e3, count=c)
-                     for us, k, c in kernels[:8]])
+                     for us, k, c in kernels[:8]],
+        host_self_ms=sum(h[0] for h in host) / 1e3,
+        top_host_ops=[dict(name=k[:60], host_ms=us / 1e3, count=c) for us, k, c in host[:8]])
 
 
 def phase_breakdown(problems: dict, main_path: dict, fit, kernel: str) -> dict:
@@ -2145,7 +2158,8 @@ def phase_k8_parity(errs: list[float]) -> dict:
     the anisotropic lobes at the main path's width (393216 lanes × 16 views;
     ward_aniso in the timber-aniso box), cook_torrance_fresnel at 16384 × 16,
     each with the grid and from a start within 10% of the truth, iters 0 and
-    16, and with 4 views masked; all three at T=517 with V=37."""
+    16, and with 4 views masked; all three at T=517 with V=37 and at each
+    further lane layout."""
     rng = np.random.default_rng(81)
     cases = {}
     mask_views = torch.randperm(V, generator=torch.Generator().manual_seed(2))[:4]
@@ -2181,6 +2195,32 @@ def phase_k8_parity(errs: list[float]) -> dict:
             torch.cuda.synchronize()
             name = f"{model}/T={T_ODD}/V={V_ODD}/p0={int(with_p0)}/iters=16"
             cases[name] = k8_compare(name, out_k, k8.varpro_nd_rows_plain(cfg, *inputs, iters=16), errs)
+    # one case for each further layout lane_layout picks (V = 1, 2 and each
+    # lobe's largest V), at the ragged T; one view more than the largest raises
+    for model in ND_LOBES:
+        cfg = k8.config(model)
+        a_count = len(k0.SHADING_KERNELS[model].angle_names)
+        v_max = k8.max_views(a_count, cfg.d)
+        seen = {k8.lane_layout(a_count, cfg.d, v) for v in (V, V_ODD)}
+        for v in (1, 2, v_max):
+            layout = k8.lane_layout(a_count, cfg.d, v)
+            if layout in seen:
+                continue
+            seen.add(layout)
+            ang, target, _ = nd_case(rng, model, T_ODD, v)
+            inputs = k8.stack_inputs(model, ang, target)
+            out_k = k8.varpro_nd_rows_cuda(cfg, *inputs, iters=16)
+            torch.cuda.synchronize()
+            check(torch.isfinite(out_k).all(), f"{model}: non-finite K8 output at V={v}")
+            name = f"{model}/T={T_ODD}/V={v}/layout={layout}/iters=16"
+            cases[name] = k8_compare(name, out_k, k8.varpro_nd_rows_plain(cfg, *inputs, iters=16), errs)
+        ang, target, _ = nd_case(rng, model, 64, v_max + 1)
+        try:
+            k8.varpro_nd_rows_cuda(cfg, *k8.stack_inputs(model, ang, target), iters=1)
+        except ValueError:
+            pass
+        else:
+            check(False, f"{model}: K8 took V={v_max + 1} views, past its largest")
     return cases
 
 
@@ -2333,34 +2373,72 @@ def phase_nd_main_path(errs: list[float]) -> tuple[int, dict, dict]:
     return launches, out, {name: prob for name, (prob, _) in problems.items()}
 
 
+# the lane layouts timed against each other at V=16 (S lanes a texel, VPL
+# views a lane); lane_layout's choice among them rests on these times
+K8_LAYOUTS_V16 = ((4, 4), (8, 2), (16, 1))
+
+
+def k8_ptxas(model: str, vpl: int) -> dict | None:
+    """What the assembler said of K8's instantiation for ``model`` and VPL."""
+    spec = k0.SHADING_KERNELS[model]
+    key = f"varpro_nd_kernelILi{spec.lobe_id}ELi{spec.n_params - 2}ELi{vpl}E"
+    return next((e for e in ptxas_numbers().get("varpro_nd", []) if key in e["entry"]), None)
+
+
+def k8_timed(model: str, kcfg, inputs, layout=None) -> dict:
+    """K8's time (CUDA events, 20 back-to-back launches, median of 3) with
+    its layout, occupancy and registers, at ``lane_layout``'s choice or at
+    ``layout`` = (S, VPL) forced in its place."""
+    forced = (nullcontext() if layout is None else
+              mock.patch.object(k8, "lane_layout", lambda a, d, v: (*layout, k8.THREADS // layout[0])))
+    with forced:
+        ms = cuda_ms(lambda: k8.varpro_nd_rows_cuda(kcfg, *inputs, iters=16), reps=20)
+        occ = k8.occupancy(model, inputs[0].shape[1])
+    ptx = k8_ptxas(model, occ["views_per_lane"]) or {}
+    return dict(ms=ms, layout=[occ["lanes"], occ["views_per_lane"], occ["block_t"]],
+                warps_per_sm=occ["warps_per_sm"], registers=occ["registers"],
+                local_bytes=occ["local_bytes"],
+                spill_bytes=ptx.get("spill_store_bytes", 0) + ptx.get("spill_load_bytes", 0),
+                stack_bytes=ptx.get("stack_bytes"))
+
+
 def phase_k8_timing(problems: dict) -> dict:
     """K8 (CUDA events; 20 back-to-back launches, median of 3 runs) and its
     plain version (one run between events) at round 0 of each main-path fit:
-    393216 lanes, the saturation mask, the in-kernel grid, k=16."""
+    393216 lanes, the saturation mask, the in-kernel grid, k=16; with the
+    layout, warps an SM, registers and spills of the launched instantiation,
+    and K8's time at each of ``K8_LAYOUTS_V16`` on the same inputs (and on
+    cook_torrance_fresnel's at the same width, ``make_problem``'s angles)."""
     saved = k8.LAUNCHES
     res = {}
+    calls = {}
     for name, cfg in ND_MAIN_PATH.items():
         model, problem = cfg["model"], problems[name]
         ang = ShadingAngles(*(None if a is None else a.repeat_interleave(CHANNELS, 0)
                               for a in problem.angles))
         y = problem.intensity.permute(0, 2, 1).reshape(-1, V)
-        w = saturation_weights(y)
-        kcfg = k8.config(model, cfg["lower"], cfg["upper"])
-        inputs = k8.stack_inputs(model, ang, y, w)
-        t = y.shape[0]
-        ms = cuda_ms(lambda: k8.varpro_nd_rows_cuda(kcfg, *inputs, iters=16), reps=20)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        k8.varpro_nd_rows_plain(kcfg, *inputs, iters=16)
-        end.record()
-        end.synchronize()
-        res[name] = dict(model=model, texels=t, grid=len(kcfg.grid), iters=16, ms=ms,
-                         plain_ms=start.elapsed_time(end), fits_per_s=t / (ms * 1e-3),
-                         block_t=k8.block_size(inputs[0].shape[0], kcfg.d, V)[0],
+        calls[name] = (model, k8.config(model, cfg["lower"], cfg["upper"]),
+                       k8.stack_inputs(model, ang, y, saturation_weights(y)))
+    ang, target, _ = nd_case(np.random.default_rng(85), "cook_torrance_fresnel", T_BENCH * CHANNELS, V)
+    calls["ct-fresnel-call"] = ("cook_torrance_fresnel", k8.config("cook_torrance_fresnel"),
+                                k8.stack_inputs("cook_torrance_fresnel", ang, target))
+    for name, (model, kcfg, inputs) in calls.items():
+        t = inputs[0].shape[-1]
+        res[name] = dict(model=model, texels=t, grid=len(kcfg.grid), iters=16,
+                         **k8_timed(model, kcfg, inputs),
                          **bound_of(k8_bytes(model, t, V, False),
                                     k8_operations(model, t, V, len(kcfg.grid), 16, False)))
+        res[name]["fits_per_s"] = t / (res[name]["ms"] * 1e-3)
+        if name in ND_MAIN_PATH:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            k8.varpro_nd_rows_plain(kcfg, *inputs, iters=16)
+            end.record()
+            end.synchronize()
+            res[name]["plain_ms"] = start.elapsed_time(end)
+        res[name]["layouts_v16"] = [k8_timed(model, kcfg, inputs, layout) for layout in K8_LAYOUTS_V16]
         log(f"K8 timing {name}: {res[name]}")
-        del ang, y, w, inputs
+    del calls, ang, target
     k8.LAUNCHES = saved                          # timing launches are not the main path's
     return res
 
@@ -2626,6 +2704,8 @@ def main() -> int:
         "bound_ms": k8_t["bound_ms"],
         "bound_by": k8_t["bound_by"],
         "library_ms": None,
+        "layout": k8_t["layout"],
+        "warps_per_sm": k8_t["warps_per_sm"],
     }]}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(card)

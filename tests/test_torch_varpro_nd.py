@@ -197,13 +197,94 @@ def test_plain_k8_float64_matches_eager_jax_tier(model):
         assert agreement(pt, pj, 1e-6) >= 0.97
 
 
-def test_block_size_shrinks_then_raises():
-    # angles, w, y·w, a·w, b·w and three ∂b: 16 floats a view for nine channels
-    assert k8.block_size(9, 3, 16) == (128, 16 * 16 * 128 * 4)
-    tb, smem = k8.block_size(9, 3, 64)
-    assert tb % 32 == 0 and tb < 128 and smem <= k8.SMEM_LIMIT
-    with pytest.raises(ValueError, match="shared memory"):
-        k8.block_size(9, 3, 120)
+# the largest V the first, shared-memory K8 took (32 texels a block)
+OLD_MAX_VIEWS = {"cook_torrance_aniso": 113, "ward_aniso": 151, "cook_torrance_fresnel": 181}
+
+
+@pytest.mark.parametrize("v", [1, 2, 16, 37, "largest", "past"])
+@pytest.mark.parametrize("model", LOBES)
+def test_lane_layout(model, v):
+    """S lanes a texel (a power of two dividing 32), VPL = ⌈V/S⌉ views a lane
+    within the lane's state budget, a block of 128 threads; every view count
+    the first K8 took still has a layout, and one past the largest raises."""
+    a_count = len(SHADING_KERNELS[model].angle_names)
+    d = J_MODELS[model].n_params - 2
+    v_max = k8.max_views(a_count, d)
+    assert v_max >= OLD_MAX_VIEWS[model]
+    if v == "past":
+        with pytest.raises(ValueError, match="registers"):
+            k8.lane_layout(a_count, d, v_max + 1)
+        return
+    v = v_max if v == "largest" else v
+    lanes, vpl, block_t = k8.lane_layout(a_count, d, v)
+    assert lanes in (1, 2, 4, 8, 16, 32) and lanes * block_t == k8.THREADS
+    assert vpl == -(-v // lanes) and (vpl - 1) * lanes < v <= vpl * lanes
+    assert vpl * (a_count + 4 + d) <= k8.LANE_STATE_FLOATS
+
+
+def _tree_sum_np(x, lanes, vpl):
+    """Per-lane float32 partials, left to right from 0 over views l, l + S,
+    …, then the pairwise tree over the lanes, written out in numpy."""
+    parts = []
+    for lane in range(lanes):
+        acc = np.zeros(x.shape[1:], np.float32)
+        for k in range(vpl):
+            if k * lanes + lane < x.shape[0]:
+                acc = (acc + x[k * lanes + lane]).astype(np.float32)
+        parts.append(acc)
+    while len(parts) > 1:
+        parts = [(parts[i] + parts[i + 1]).astype(np.float32) for i in range(0, len(parts), 2)]
+    return parts[0][None]
+
+
+def test_plain_group_sum_is_a_pairwise_tree_of_lane_partials(monkeypatch):
+    """``group_sum`` equals the numpy tree bit for bit on every layout
+    ``lane_layout`` picks for V ∈ {1, 2, 3, 16, 37, 128}, and differs from a
+    left-to-right sum somewhere; ``varpro_nd_rows_plain`` sums every view
+    quantity with it at ``lane_layout``'s layout."""
+    rng = np.random.default_rng(60)
+    differs = False
+    for v in (1, 2, 3, 16, 37, 128):
+        lanes, vpl, _ = k8.lane_layout(9, 3, v)
+        x = (rng.standard_normal((v, 64)) * np.exp(rng.uniform(-8, 8, (v, 64)))).astype(np.float32)
+        got = k8.group_sum(torch.tensor(x), lanes, vpl).numpy()
+        np.testing.assert_array_equal(got, _tree_sum_np(x, lanes, vpl))
+        differs |= bool((got != _tree_sum_np(x, 1, v)).any())
+    assert differs
+    seen = []
+    real = k8.group_sum
+
+    def spy(x, lanes, vpl):
+        seen.append((x.shape[0], lanes, vpl))
+        return real(x, lanes, vpl)
+
+    monkeypatch.setattr(k8, "group_sum", spy)
+    cols, _, y, p0, _ = _problem("ward_aniso", seed=61)
+    _port("ward_aniso", cols, y, p0=p0, iters=1)
+    assert len(seen) == 2 + 2 * (3 + 1 + 3 * 3 + 6)
+    assert set(seen) == {(V, *k8.lane_layout(5, 3, V)[:2])}
+
+
+@pytest.mark.parametrize("model", LOBES)
+def test_plain_k8_group_order_matches_left_to_right_float64(model, monkeypatch):
+    """In float64 the closed-form solve (a start, no Newton step) in the lane
+    order agrees with the same solve summed left to right (one lane holding
+    every view) within 1e-12 on every lane and every output row."""
+    cols, _, y, p0, rng = _problem(model, seed=70 + LOBES.index(model), dtype=np.float64)
+    y = y * (1.0 + 0.01 * rng.standard_normal(y.shape))
+    names = SHADING_KERNELS[model].angle_names
+    ang = torch.stack([torch.tensor(cols[n]).T for n in names]).contiguous()
+    yt = torch.tensor(y).T.contiguous()
+    w = torch.ones_like(yt)
+    cfg = k8.config(model)
+    p0t = torch.tensor(p0.astype(np.float64)).T.contiguous()
+    lanes, _, _ = k8.lane_layout(len(names), cfg.d, V)
+    assert lanes > 1
+    grouped = k8.varpro_nd_rows_plain(cfg, ang, yt, w, p0t, 0).numpy()
+    monkeypatch.setattr(k8, "lane_layout", lambda a, d, v: (1, v, k8.THREADS))
+    serial = k8.varpro_nd_rows_plain(cfg, ang, yt, w, p0t, 0).numpy()
+    assert grouped.dtype == np.float64
+    np.testing.assert_allclose(grouped, serial, rtol=1e-12, atol=1e-12)
 
 
 def test_cpu_tensors_take_the_plain_version_and_never_the_kernel():
