@@ -1,7 +1,7 @@
 // Lane groups: one work item (a texel) solved by a group of S lanes of one
 // warp, each lane holding a slice of the item's views in registers. Used by K8
-// (varpro_nd.cu); meant for the kernels that walk every view of a texel in one
-// thread today (K5 lm.cu, K6 ne.cu, K7 joint_ne.cu).
+// (varpro_nd.cu) and K5 (lm.cu); meant for the kernels that walk every view of
+// a texel in one thread today (K6 ne.cu, K7 joint_ne.cu).
 //
 // The layout: S is a power of two that divides 32, so a group never straddles
 // a warp; lane l of a group holds views l, l + S, l + 2S, … ("slot" k holds
@@ -43,6 +43,20 @@ __device__ __forceinline__ void group_sum(float (&x)[N], int s) {
 #pragma unroll
     for (int i = 0; i < N; ++i) x[i] = x[i] + __shfl_xor_sync(kFullWarp, x[i], o);
   }
+}
+
+// Work items handed out as groups finish theirs (K5's refill). Every lane of
+// the warp calls it (full-mask ballot and shuffle); `want` is the same on the
+// s lanes of a group. The warp's wanting groups take consecutive values of
+// *counter with one atomicAdd, in lane order; what a group that does not want
+// one gets is meaningless. Values past the work are the caller's to test.
+__device__ __forceinline__ int take_items(int* counter, bool want, int s) {
+  const int lane_w = static_cast<int>(threadIdx.x) & 31;
+  const unsigned leaders = __ballot_sync(kFullWarp, want && (lane_w & (s - 1)) == 0);
+  int base = 0;
+  if (lane_w == 0 && leaders != 0u) base = atomicAdd(counter, __popc(leaders));
+  base = __shfl_sync(kFullWarp, base, 0);
+  return base + __popc(leaders & ((1u << (lane_w & ~(s - 1))) - 1u));
 }
 
 }  // namespace brdf

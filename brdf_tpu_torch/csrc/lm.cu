@@ -1,4 +1,6 @@
-// Fused box-constrained Levenberg-Marquardt fit, one thread per texel (kernel K5).
+// Fused box-constrained Levenberg-Marquardt fit (kernel K5): one texel a group
+// of S lanes of a warp, each lane holding a slice of the texel's views, and
+// texels handed out as groups finish theirs.
 //
 // Replaces brdf_tpu/ops/lm_pallas.py::_lm_kernel (launched there by
 // lm_fit_pallas). It computes what that kernel computes, for any of the ten
@@ -11,37 +13,71 @@
 // system, Nielsen's μ/ν control and the levmar stop codes, with the warm
 // (μ, ν, stop) resume rows of the start array.
 //
-// Designed for this card, not carried over from the TPU block: there a block
-// of 1024 lanes iterates until its slowest lane stops and packs its carry into
-// one (16, TB) array. Here each thread keeps its lane's solver state in
-// registers and leaves the loop when its own lane stops; the results are the
-// same because a stopped lane only ever kept its state. T is bound-checked,
-// never padded.
-//
 // What bounds it on an H100: operations, not bytes. A texel reads (A+2)·V
-// floats once and then evaluates its lobe 2·V times per iteration (Jacobian
+// floats once and then evaluates its lobe 2·V times an iteration (Jacobian
 // pass and trial χ² pass), each evaluation dozens of FP32 operations with
-// expf/logf/sqrtf/sinf/cosf and divides. So a block stages its texels' angles,
-// targets and weights in shared memory once (layout [channel][view][texel]:
-// the 32 threads of a warp touch 32 consecutive words, coalesced loads and no
-// bank conflicts) and iterates from shared memory and registers with no
-// further device-memory traffic until the 16 output rows. Each thread reads
-// only its own texel's column, so the kernel needs no barrier. The staged
-// inputs are (A+2)·V·4 bytes a texel (704 B at V=16 for the nine-channel lobe,
-// 90 KB a 128-thread block), above the 48 KB static limit, hence the dynamic
-// shared-memory opt-in.
+// expf/logf/sqrtf/sinf/cosf and divides, and the number of iterations is the
+// texel's own (1 to itmax).
 //
-// Rounding follows lobes.cuh's rules, so the kernel can be held against
-// ops/lm.py::lm_rows_plain lane for lane: view sums run left to right from 0,
-// the sums over parameters run in the order of the Pallas kernel's Python
-// sums, tmp³ is two multiplies, 1/3 is a float constant.
+// What held the first design back (one thread a texel, its views staged in
+// shared memory): each thread walked its views in one dependent chain with a
+// shared-memory load a view, and a warp iterated until the slowest of its 32
+// texels stopped — on the timber-aniso call 83% of the issued lane-iterations
+// were idle lanes.
+//
+// This design (csrc/lanegroup.cuh):
+// - A texel is solved by S lanes; lane l holds views l, l + S, … (VPL of them,
+//   A + 2 floats a view: angles, y, w). Every view sum (the start χ², JᵀJ and
+//   Jᵀr, the trial χ²) is the lane's partial left to right, then log2 S
+//   butterfly rounds, so all S lanes hold the same bits and run the scalar
+//   solve replicated in lockstep. ops/lm.py::lane_layout picks (S, VPL) from
+//   V and the lobe's angle count for the wrapper and the plain version alike:
+//   (4, 4) at V=16, (8, 2) for the two-channel lobes.
+// - Where a lane keeps its views: in registers (VPL = 1 or 2 slots, a
+//   template parameter; a slot past V runs on a clamped view and its terms
+//   are left out by select) while they take at most 8 floats, else staged in
+//   shared memory (VPL = 0), [warp][channel][slot][lane of the warp]: a lane
+//   stores and reads back only its own column, so a load needs no barrier
+//   and the 32 lanes hit 32 banks, and the slot loop runs to the lane's own
+//   last view. Measured on an H100 (PERF.md, the K5 findings), registers win for
+//   blinn_phong at (8, 2); for the heavier lobes, views held in registers
+//   raise the registers a thread and so cut the warps an SM, and staging wins.
+//   Staging also takes every view count fits_fused admits (up to 605) with
+//   one instantiation a lobe, 128·(A+2)·⌈V/S⌉·4 bytes a block (at most 33 KB,
+//   for cook_torrance_aniso at 165 views).
+// - The loop is warp-uniform: it runs while any group of the warp has a
+//   texel, every lane makes every shuffle, and a group whose texel has stopped
+//   (final stop code or itmax) writes its 16 rows and takes the next untaken
+//   texel from a work counter — one atomicAdd a warp for all its groups that
+//   finished in that trip, then a shuffle. The grid is persistent (the SM
+//   count × resident blocks an SM), so a warp no longer waits on its slowest
+//   texel but only, at the very end, on the last ones.
+// - A trip is the same instructions for every texel: the Jacobian pass at p
+//   (which also sums χ²(p): a fresh texel takes it as its start χ², which is
+//   the trial pass's arithmetic), the solve, the trial χ² pass and the
+//   accept. A texel's result depends on its own inputs alone, so it does not
+//   matter which group took it.
+// - refill = 0 launches one group a texel instead (no counter), for the
+//   timing phase that weighs the refill; the results are the same.
+// There is no fallback.
+//
+// Rounding follows lobes.cuh's rules (built with -fmad=false, NaN-propagating
+// clamps and maxima), so the kernel can be held against
+// ops/lm.py::lm_rows_plain lane for lane: its view sums follow the same lane
+// order and tree (ops/lanegroup.py::group_sum), the sums over parameters run
+// in the order of the Pallas kernel's Python sums, tmp³ is two multiplies, 1/3
+// is a float constant.
 //
 // Interface: plain C, loaded with ctypes (brdf_tpu_torch/ops/_build.py). The
 // kernel runs on the caller's stream, never synchronises and allocates
-// nothing; the entry returns cudaGetLastError() after the launch.
+// nothing; counters[0] is the work counter and counters[1] sums the warps'
+// trips, both zeroed by the caller; the entry returns cudaGetLastError()
+// after the launch.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "bvls2.cuh"
+#include "lanegroup.cuh"
 #include "lobes.cuh"
 
 namespace {
@@ -49,6 +85,8 @@ namespace {
 constexpr int kMaxParams = 5;
 constexpr float kTiny = 1e-30f;
 constexpr float kThird = static_cast<float>(1.0 / 3.0);
+constexpr int kThreads = 128;   // a block: four warps, 128 / S texels in flight
+constexpr int kMinBlocks = 4;   // 16 warps an SM: at most 128 registers a thread
 
 // levmar stop codes (solver/lm.py::StopReason), stored as floats
 constexpr float kStopSmallGradient = 1.0f;
@@ -59,20 +97,15 @@ constexpr float kStopNoReduction = 5.0f;
 constexpr float kStopSmallChi2 = 6.0f;
 constexpr float kStopInvalid = 7.0f;
 
+using brdf::clip_nan;
+using brdf::max_nan;
+
 struct LmArgs {
   float lb[kMaxParams], ub[kMaxParams];
   float eps1, eps2_sq, eps3, mu_max, half_mu_max, tau;
   float itmax;    // iterations are counted as floats, as the output row stores them
   int marquardt;  // 0: JᵀJ + μI, 1: JᵀJ + μ·diag(JᵀJ)
 };
-
-// torch.maximum / torch.clamp propagate NaN; fmaxf and fminf drop it
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a || b != b) ? NAN : fmaxf(a, b);
-}
-__device__ __forceinline__ float clip_nan(float x, float lo, float hi) {
-  return x != x ? x : fminf(fmaxf(x, lo), hi);
-}
 
 // Closed-form symmetric solve dp = −Af⁻¹ gf; af[j][k] is read for j ≤ k only.
 template <int M>
@@ -147,88 +180,152 @@ __device__ __forceinline__ bool solve_damped(float (&af)[M][M], float (&gf)[M],
   }
 }
 
-template <int L>
-__global__ void __launch_bounds__(128)
+// VPL > 0: VPL view slots a lane in registers; VPL == 0: the views staged in
+// shared memory, (A+2)·⌈V/S⌉ floats a lane
+template <int L, int VPL>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 lm_kernel(const float* __restrict__ ang,  // (A, V, T)
           const float* __restrict__ y,    // (V, T)
           const float* __restrict__ w,    // (V, T)
           const float* __restrict__ p0,   // (8, T): rows 0..m-1 start, 5/6/7 warm (μ, ν, stop)
           float* __restrict__ out,        // (16, T)
-          int T, int V, LmArgs s) {
+          int* __restrict__ counters,     // [0] next texel, [1] warp trips
+          int T, int V, int S, int refill, LmArgs s) {
   constexpr int A = brdf::LobeTraits<L>::n_angles;
   constexpr int M = brdf::LobeTraits<L>::n_params;
+  constexpr int NJ = M * (M + 1) / 2;   // JᵀJ, upper triangle, row by row
+  constexpr int NS = NJ + M + 1;        // then Jᵀr, then χ²
+  constexpr bool kStaged = VPL == 0;
+  constexpr int NR = kStaged ? 1 : VPL;
   extern __shared__ float smem[];
-  const int tb = blockDim.x;
-  const int tid = threadIdx.x;
-  const long t = static_cast<long>(blockIdx.x) * tb + tid;
-  if (t >= T) return;  // ragged edge: masked, never written
+  const int lane = static_cast<int>(threadIdx.x) & (S - 1);
+  const long vt = static_cast<long>(V) * T;
+  // staged views: [warp][channel][slot][lane of the warp], so that a lane
+  // reads and writes only its own column and the 32 lanes hit 32 banks
+  const int n_slots = (V + S - 1) / S;
+  float* sv = smem + (threadIdx.x >> 5) * (A + 2) * n_slots * 32 + (threadIdx.x & 31);
 
-  // [channel][view][texel]; each thread owns one texel column
-  float* s_ang = smem;               // A·V·tb
-  float* s_y = s_ang + A * V * tb;   // V·tb
-  float* s_w = s_y + V * tb;         // V·tb
-  for (int v = 0; v < V; ++v) {
-    const long g = static_cast<long>(v) * T + t;
-    const int sv = v * tb + tid;
+  // register slots: lane's views k·S + lane; only the last can fall past V
+  float av[NR][A], yv[NR], wv[NR];
+  bool in_v[NR];
 #pragma unroll
-    for (int a = 0; a < A; ++a) s_ang[a * V * tb + sv] = ang[static_cast<long>(a) * V * T + g];
-    s_y[sv] = y[g];
-    s_w[sv] = w[g];
+  for (int k = 0; k < NR; ++k) {
+    in_v[k] = k * S + lane < V;
+    yv[k] = wv[k] = 0.0f;
+#pragma unroll
+    for (int a = 0; a < A; ++a) av[k][a] = 0.0f;
   }
 
-  float av[A];
-  auto load_angles = [&](int v) {
+  // f(angles, y, w, in) on each of this lane's views, left to right
+  auto each_view = [&](auto&& f) {
+    if constexpr (kStaged) {
+      float a_v[A];
+      for (int k = 0; k * S + lane < V; ++k) {
 #pragma unroll
-    for (int a = 0; a < A; ++a) av[a] = s_ang[a * V * tb + v * tb + tid];
-  };
-  auto chi2_of = [&](const float (&q)[M]) {
-    float c = 0.0f;
-    for (int v = 0; v < V; ++v) {
-      load_angles(v);
-      const int sv = v * tb + tid;
-      const float r = (brdf::lobe_full<L>(av, q).i - s_y[sv]) * s_w[sv];
-      c += r * r;
+        for (int a = 0; a < A; ++a) a_v[a] = sv[(a * n_slots + k) * 32];
+        f(a_v, sv[(A * n_slots + k) * 32], sv[((A + 1) * n_slots + k) * 32], true);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < NR; ++k) f(av[k], yv[k], wv[k], in_v[k]);
     }
-    return c;
   };
 
-  float p[M];
-#pragma unroll
-  for (int j = 0; j < M; ++j) p[j] = clip_nan(p0[static_cast<long>(j) * T + t], s.lb[j], s.ub[j]);
-  float chi2 = chi2_of(p);
-
-  // warm rows: μ ≤ 0 or non-finite → Kanzow init at iteration 0; ν < 2 or
-  // non-finite → 2; a non-zero stop is final and short-circuits the lane
-  float mu = p0[5L * T + t];
-  mu = (isfinite(mu) && mu > 0.0f) ? mu : 0.0f;
-  float nu = p0[6L * T + t];
-  nu = (isfinite(nu) && nu >= 2.0f) ? nu : 2.0f;
-  const float stop_w = p0[7L * T + t];
-  float stop = stop_w != 0.0f ? stop_w : (isfinite(chi2) ? 0.0f : kStopInvalid);
-  float it = 0.0f;
+  // the group's texel and solver state (the same bits on its S lanes)
+  int t = 0;
+  bool have = false, done = true, fresh = false;
+  float p[M], chi2 = 0.0f, mu = 0.0f, nu = 2.0f, stop = 0.0f, stop_w = 0.0f, it = 0.0f;
   float g_inf = 3.4e38f;
+#pragma unroll
+  for (int j = 0; j < M; ++j) p[j] = 0.0f;
+  const long first = (static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x) / S;
+  int trips = 0;
 
-  while (stop == 0.0f && it < s.itmax) {
-    // normal equations over the views (weights fold in once via w²)
-    float a[M][M], g[M];
+  for (;;) {
+    // groups whose texel is written (and, at the start, every group) take the
+    // next untaken one; with refill = 0 a group takes one texel only
+    const int taken = refill ? brdf::take_items(counters, done, S) : 0;
+    if (done) {
+      t = refill ? taken : (trips == 0 && first < T ? static_cast<int>(first) : T);
+      have = t < T;
+      done = false;
+      if (have) {
+        if constexpr (kStaged) {
+          for (int k = 0; k * S + lane < V; ++k) {
+            const long g = static_cast<long>(k * S + lane) * T + t;
 #pragma unroll
-    for (int j = 0; j < M; ++j) {
-      g[j] = 0.0f;
+            for (int a = 0; a < A; ++a) sv[(a * n_slots + k) * 32] = ang[a * vt + g];
+            sv[(A * n_slots + k) * 32] = y[g];
+            sv[((A + 1) * n_slots + k) * 32] = w[g];
+          }
+        } else {
 #pragma unroll
-      for (int k = j; k < M; ++k) a[j][k] = 0.0f;
+          for (int k = 0; k < NR; ++k) {
+            const long g = static_cast<long>(in_v[k] ? k * S + lane : V - 1) * T + t;
+#pragma unroll
+            for (int a = 0; a < A; ++a) av[k][a] = ang[a * vt + g];
+            yv[k] = y[g];
+            wv[k] = w[g];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < M; ++j)
+          p[j] = clip_nan(p0[static_cast<long>(j) * T + t], s.lb[j], s.ub[j]);
+        // warm rows: μ ≤ 0 or non-finite → Kanzow init at iteration 0; ν < 2
+        // or non-finite → 2; a non-zero stop is final and short-circuits
+        const float mu_w = p0[5L * T + t];
+        mu = (isfinite(mu_w) && mu_w > 0.0f) ? mu_w : 0.0f;
+        const float nu_w = p0[6L * T + t];
+        nu = (isfinite(nu_w) && nu_w >= 2.0f) ? nu_w : 2.0f;
+        stop_w = p0[7L * T + t];
+        it = 0.0f;
+        g_inf = 3.4e38f;
+        fresh = true;
+      }
     }
-    for (int v = 0; v < V; ++v) {
-      load_angles(v);
-      const int sv = v * tb + tid;
-      const brdf::LobeOut<L> o = brdf::lobe_full<L>(av, p);
-      const float wv = s_w[sv];
-      const float w2 = wv * wv;
-      const float r = (o.i - s_y[sv]) * wv;
+    if (!__any_sync(brdf::kFullWarp, have)) break;
+    ++trips;
+
+    // Jacobian pass at p: the normal equations (weights fold in once via w²)
+    // and χ²(p)
+    float sums[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sums[i] = 0.0f;
+    {
+      const brdf::LobePoint pt = brdf::lobe_point<L>(p);
+      each_view([&](const float* a_v, float yk, float wk, bool in) {
+        const brdf::LobeOut<L> o = brdf::lobe_full<L>(a_v, p, pt);
+        const float w2 = wk * wk;
+        const float r = (o.i - yk) * wk;
+        if (in) {
+          int n = 0;
+#pragma unroll
+          for (int j = 0; j < M; ++j) {
+#pragma unroll
+            for (int k = j; k < M; ++k) sums[n++] += o.dp[j] * o.dp[k] * w2;
+          }
+#pragma unroll
+          for (int j = 0; j < M; ++j) sums[NJ + j] += o.dp[j] * r * wk;
+          sums[NS - 1] += r * r;
+        }
+      });
+    }
+    brdf::group_sum(sums, S);
+    if (fresh) {  // the start χ², and the stop code it gives
+      chi2 = sums[NS - 1];
+      stop = stop_w != 0.0f ? stop_w : (isfinite(chi2) ? 0.0f : kStopInvalid);
+      fresh = false;
+    }
+    const bool active = have && stop == 0.0f && it < s.itmax;
+
+    float a[M][M], g[M];
+    {
+      int n = 0;
 #pragma unroll
       for (int j = 0; j < M; ++j) {
 #pragma unroll
-        for (int k = j; k < M; ++k) a[j][k] += o.dp[j] * o.dp[k] * w2;
-        g[j] += o.dp[j] * r * wv;
+        for (int k = j; k < M; ++k) a[j][k] = sums[n++];
+        g[j] = sums[NJ + j];
       }
     }
 
@@ -279,7 +376,17 @@ lm_kernel(const float* __restrict__ ang,  // (A, V, T)
     }
     const bool small_dp = dp_nrm2 <= s.eps2_sq * p_nrm2;
 
-    const float chi2_new = chi2_of(pn);
+    // trial χ² pass at pn
+    float c_new[1] = {0.0f};
+    {
+      const brdf::LobePoint pt = brdf::lobe_point<L>(pn);
+      each_view([&](const float* a_v, float yk, float wk, bool in) {
+        const float r = (brdf::lobe_full<L>(a_v, pn, pt).i - yk) * wk;
+        if (in) c_new[0] += r * r;
+      });
+    }
+    brdf::group_sum(c_new, S);
+    const float chi2_new = c_new[0];
     const bool finite = isfinite(chi2_new);
     const float df = chi2 - chi2_new;
 
@@ -310,58 +417,95 @@ lm_kernel(const float* __restrict__ ang,  // (A, V, T)
     if (chi2_sel <= s.eps3) st = kStopSmallChi2;
     if (grad_conv) st = kStopSmallGradient;
 
-    if (accept) {
+    if (active) {
+      if (accept) {
 #pragma unroll
-      for (int j = 0; j < M; ++j) p[j] = pn[j];
+        for (int j = 0; j < M; ++j) p[j] = pn[j];
+      }
+      chi2 = chi2_sel;
+      mu = mu_next;
+      nu = nu_next;
+      it += 1.0f;
+      stop = st;
+      g_inf = gi;
     }
-    chi2 = chi2_sel;
-    mu = mu_next;
-    nu = nu_next;
-    it += 1.0f;
-    stop = st;
-    g_inf = gi;
-  }
 
+    // a texel that has stopped is written, and its group takes another
+    done = have && !(stop == 0.0f && it < s.itmax);
+    if (done && lane == 0) {
 #pragma unroll
-  for (int j = 0; j < M; ++j) out[static_cast<long>(j) * T + t] = p[j];
+      for (int j = 0; j < M; ++j) out[static_cast<long>(j) * T + t] = p[j];
 #pragma unroll
-  for (int j = M; j < kMaxParams; ++j) out[static_cast<long>(j) * T + t] = 0.0f;
-  out[5L * T + t] = chi2;
-  out[6L * T + t] = it;
-  out[7L * T + t] = stop == 0.0f ? kStopMaxIterations : stop;
-  out[8L * T + t] = g_inf;
-  out[9L * T + t] = mu;
-  out[10L * T + t] = nu;
+      for (int j = M; j < kMaxParams; ++j) out[static_cast<long>(j) * T + t] = 0.0f;
+      out[5L * T + t] = chi2;
+      out[6L * T + t] = it;
+      out[7L * T + t] = stop == 0.0f ? kStopMaxIterations : stop;
+      out[8L * T + t] = g_inf;
+      out[9L * T + t] = mu;
+      out[10L * T + t] = nu;
 #pragma unroll
-  for (int j = 11; j < 16; ++j) out[static_cast<long>(j) * T + t] = 0.0f;
+      for (int j = 11; j < 16; ++j) out[static_cast<long>(j) * T + t] = 0.0f;
+    }
+  }
+  if ((threadIdx.x & 31) == 0) atomicAdd(&counters[1], trips);
 }
 
+using KernelFn = void (*)(const float*, const float*, const float*, const float*, float*, int*,
+                          int, int, int, int, LmArgs);
+
+// the instantiation for `slots` register slots a lane (1 or 2), or the staged
+// one (0)
 template <int L>
-int launch(const float* ang, const float* y, const float* w, const float* p0, float* out,
-           int T, int V, int block_t, int smem_bytes, const LmArgs& s, cudaStream_t stream) {
-  constexpr int A = brdf::LobeTraits<L>::n_angles;
-  if (smem_bytes != (A + 2) * V * block_t * static_cast<int>(sizeof(float)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(lm_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (T + block_t - 1) / block_t;
-  lm_kernel<L><<<blocks, block_t, smem_bytes, stream>>>(ang, y, w, p0, out, T, V, s);
-  return static_cast<int>(cudaGetLastError());
+KernelFn kernel_for(int slots) {
+  switch (slots) {
+    case 0: return lm_kernel<L, 0>;
+    case 1: return lm_kernel<L, 1>;
+    case 2: return lm_kernel<L, 2>;
+    default: return nullptr;
+  }
+}
+
+KernelFn pick_kernel(int lobe, int slots) {
+  BRDF_DISPATCH_LOBE(lobe, return kernel_for<kLobe>(slots))
+  return nullptr;
+}
+
+int n_params_of(int lobe) {
+  BRDF_DISPATCH_LOBE(lobe, return brdf::LobeTraits<kLobe>::n_params)
+  return 0;
+}
+
+int n_angles_of(int lobe) {
+  BRDF_DISPATCH_LOBE(lobe, return brdf::LobeTraits<kLobe>::n_angles)
+  return 0;
+}
+
+// dynamic shared memory of a block: the staged views of its warps
+int smem_bytes(int lobe, int slots, int lanes, int V) {
+  if (slots != 0) return 0;
+  return kThreads * (n_angles_of(lobe) + 2) * ((V + lanes - 1) / lanes) *
+         static_cast<int>(sizeof(float));
 }
 
 }  // namespace
 
 // lower/upper hold n_params floats (host memory); eps2_sq, half_mu_max come
 // from the wrapper so that both versions use the same float32 constants.
+// lanes: a power of two dividing 32; slots: 1 or 2 register slots a lane
+// (slots·lanes ≥ V), or 0 for the views staged in shared memory; refill: 1
+// for the persistent grid that hands out texels as groups finish.
 extern "C" int brdf_lm_fit(int lobe, const float* ang, const float* y, const float* w,
-                           const float* p0, float* out, int T, int V, int block_t,
-                           int smem_bytes, const float* lower, const float* upper, int n_params,
-                           float eps1, float eps2_sq, float eps3, float mu_max,
+                           const float* p0, float* out, int* counters, int T, int V, int lanes,
+                           int slots, int refill, const float* lower, const float* upper,
+                           int n_params, float eps1, float eps2_sq, float eps3, float mu_max,
                            float half_mu_max, float tau, int itmax, int marquardt,
                            void* stream) {
-  if (n_params < 1 || n_params > kMaxParams || block_t < 32 || block_t > 128 || block_t % 32)
+  const bool lanes_ok = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
+  if (n_params < 1 || n_params > kMaxParams || n_params != n_params_of(lobe) || T < 1 || V < 1 ||
+      !lanes_ok || (slots != 0 && static_cast<long>(slots) * lanes < V))
     return static_cast<int>(cudaErrorInvalidValue);
+  const KernelFn kernel = pick_kernel(lobe, slots);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   LmArgs s;
   for (int j = 0; j < kMaxParams; ++j) {
     s.lb[j] = j < n_params ? lower[j] : 0.0f;
@@ -375,11 +519,49 @@ extern "C" int brdf_lm_fit(int lobe, const float* ang, const float* y, const flo
   s.tau = tau;
   s.itmax = static_cast<float>(itmax);
   s.marquardt = marquardt;
-  auto st = static_cast<cudaStream_t>(stream);
-  BRDF_DISPATCH_LOBE(
-      lobe,
-      if (brdf::LobeTraits<kLobe>::n_params != n_params)
-        return static_cast<int>(cudaErrorInvalidValue);
-      return launch<kLobe>(ang, y, w, p0, out, T, V, block_t, smem_bytes, s, st))
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = smem_bytes(lobe, slots, lanes, V);
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  // one group a texel, or (refill) the blocks the card holds at once
+  const long texels_a_block = kThreads / lanes;
+  long blocks = (static_cast<long>(T) + texels_a_block - 1) / texels_a_block;
+  if (refill) {
+    int device = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+            cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+            cudaSuccess)
+      return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    blocks = blocks < static_cast<long>(sms) * per_sm ? blocks : static_cast<long>(sms) * per_sm;
+  }
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      ang, y, w, p0, out, counters, T, V, lanes, refill, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// What an instantiation gets on this card: out[0] resident blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its shared memory for V
+// views), out[1] registers a thread, out[2] local memory bytes a thread (stack
+// and spills), out[3] threads a block, out[4] the card's SM count.
+extern "C" int brdf_lm_occupancy(int lobe, int slots, int lanes, int V, int* out) {
+  const KernelFn kernel = pick_kernel(lobe, slots);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], kernel, kThreads, smem_bytes(lobe, slots, lanes, V));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = kThreads;
+  int device = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaDeviceGetAttribute(&out[4], cudaDevAttrMultiProcessorCount, device));
 }

@@ -22,8 +22,12 @@ scatters.
 
 On the card K5 is bound by FP32 and special-function issue, not by bytes
 (see the note in ``csrc/lm.cu``): every texel reads its inputs once and
-evaluates its lobe ``2·V`` times per iteration, and each thread leaves the
-loop when its own lane stops, so the work depends on the data.
+evaluates its lobe ``2·V`` times per iteration, for as many iterations as
+its own solve takes. K5 solves a texel with a group of S lanes, each holding
+VPL of its views (:func:`lane_layout`), and hands texels out to groups as
+they finish theirs; it sums over views in the layout's fixed order
+(``ops/lanegroup.py::group_sum``), and so does the plain version, so the two
+agree bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 
 from brdf_tpu_torch.models.brdf import ShadingAngles
 from brdf_tpu_torch.ops import _build
+from brdf_tpu_torch.ops.lanegroup import group_lanes, group_sum
 from brdf_tpu_torch.ops.shading import SHADING_KERNELS, ShadingKernelSpec
 from brdf_tpu_torch.solver.lm import LMOptions, StopReason
 
@@ -46,8 +51,28 @@ PALLAS_MODELS: dict[str, ShadingKernelSpec] = dict(SHADING_KERNELS)
 MAX_PARAMS = 5          # the fused whole-solve kernel (K5)
 MAX_SOLVE_PARAMS = 9    # the unrolled-Cholesky damped solve (the m=9 joint fit included)
 _TINY = 1e-30
-# Shared memory a block may use on Hopper (sm_90), opt-in dynamic maximum.
+# Shared memory a block may use on Hopper (sm_90), opt-in dynamic maximum: the
+# first K5 staged 32 texels' views in it, which set the view counts it takes
+# (fits_fused); the K5/K6 routing keeps them.
 SMEM_LIMIT = 232448
+# K5's block: four warps (csrc/lm.cu kThreads)
+THREADS = 128
+# Views a lane holds while a group of up to 32 lanes can take the views (see
+# lane_layout), by the lobe's angle channels: 4, (S, VPL) = (4, 4) at V=16,
+# the fastest of five layouts timed on an H100 for ward_aniso and
+# cook_torrance_aniso (PERF.md, the K5 findings); 2 for the two-channel lobes, whose
+# (4, 4) sum order moves a CPU test of blinn_phong off its premise (ROADMAP.md
+# Queue C).
+VIEWS_PER_LANE = 4
+VIEWS_PER_LANE_BY_ANGLES = {2: 2}
+# A lane keeps its views in registers while they take at most this many
+# floats (A + 2 a view: angles, y, w; csrc/lm.cu instantiates 1 and 2 slots);
+# past it they are staged in shared memory, which keeps the registers a
+# thread down and the warps an SM up (PERF.md, the K5 findings).
+REGISTER_FLOATS = 8
+# Hand texels out to lane groups as they finish (a persistent grid and a work
+# counter) rather than one group a texel; chip_smoke.py times both.
+REFILL = True
 # Kernel launches made by lm_rows_cuda since the count was last reset.
 LAUNCHES = 0
 
@@ -188,20 +213,19 @@ def lm_rows_plain(cfg: LMConfig, ang, y, w, p0_rows) -> torch.Tensor:
     (0..4 parameters, 5 χ², 6 iterations, 7 stop, 8 g_inf, 9 μ, 10 ν).
 
     Lanes are columns; the loop runs while any lane is active and a lane
-    that has stopped keeps its state, which is what the kernel's per-thread
-    loop exit gives."""
+    that has stopped keeps its state, which is what the kernel's groups do
+    when their texel stops (they write it and take another). Every sum over
+    views is :func:`~brdf_tpu_torch.ops.lanegroup.group_sum` at
+    :func:`lane_layout`'s layout, the kernel's order."""
     spec = PALLAS_MODELS[cfg.model]
     m = spec.n_params
     angles = tuple(ang[a] for a in range(ang.shape[0]))
     w2 = w * w
     lb, ub = cfg.lower, cfg.upper
+    lanes, vpl, _ = lane_layout(ang.shape[0], ang.shape[1])
 
     def rsum(x):
-        # views summed left to right from 0, in the kernel's order
-        acc = torch.zeros_like(x[0:1])
-        for v in range(x.shape[0]):
-            acc = acc + x[v:v + 1]
-        return acc
+        return group_sum(x, lanes, vpl)
 
     def psum(terms, zero):
         # a sum over parameters, from 0 upward
@@ -311,41 +335,77 @@ def lm_rows_plain(cfg: LMConfig, ang, y, w, p0_rows) -> torch.Tensor:
 
 
 def fits_fused(n_angles: int, v: int) -> bool:
-    """Whether the fused kernel can stage ``v`` views of 32 texels in shared
-    memory (V ≤ 165 for a nine-channel lobe, V ≤ 363 for cook_torrance,
-    V ≤ 454 for blinn_phong)."""
+    """Whether K5 takes ``v`` views: V ≤ 165 for a nine-channel lobe, V ≤ 363
+    for cook_torrance, V ≤ 454 for blinn_phong — the counts whose views the
+    first K5 could stage for 32 texels in a block's shared memory. The
+    redesigned K5 keeps them, so that the K5/K6 routing of ``parallel/fit.py``
+    does not move; past them runs the chunked tier."""
     return (n_angles + 2) * v * 32 * 4 <= SMEM_LIMIT
 
 
-def block_size(n_angles: int, v: int) -> tuple[int, int]:
-    """(texels per block, shared-memory bytes): a block stages ``(A + 2)·V``
-    floats per texel (angles, y, w); it shrinks in steps of 32 texels until
-    that fits, and raises when even 32 do not: such a view count belongs to
-    the chunked tier, which ``parallel/fit.py`` then chooses by itself."""
-    tb = 128       # the kernel's __launch_bounds__
-    while tb >= 32:
-        smem = (n_angles + 2) * v * tb * 4
-        if smem <= SMEM_LIMIT:
-            return tb, smem
-        tb -= 32
-    raise ValueError(
-        f"V={v} views do not fit the fused LM kernel's shared memory "
-        f"({(n_angles + 2) * v * 32 * 4} bytes for 32 texels > {SMEM_LIMIT}); "
-        "use ops/ne.py::lm_fit_chunked, which streams the views"
-    )
+def views_per_lane(n_angles: int) -> int:
+    """The most views a lane of K5 holds before a texel takes more lanes."""
+    return VIEWS_PER_LANE_BY_ANGLES.get(n_angles, VIEWS_PER_LANE)
+
+
+def lane_layout(n_angles: int, v: int) -> tuple[int, int, int]:
+    """K5's layout for ``v`` views → ``(S, VPL, block_t)``: S lanes a texel (a
+    power of two that divides 32), VPL = ⌈v / S⌉ views a lane (lane l holds
+    views l, l + S, …), ``block_t`` = 128 / S texels a block in flight. S is
+    the smallest that gives a lane at most :func:`views_per_lane` views, or
+    32. The kernel and the plain version both sum in this layout's order.
+    Past :func:`fits_fused` it raises: such a view count belongs to the
+    chunked tier, which ``parallel/fit.py`` then chooses by itself."""
+    if v < 1 or not fits_fused(n_angles, v):
+        raise ValueError(
+            f"V={v} views are not taken by the fused LM kernel (1 to the views whose "
+            f"{n_angles + 2} floats a view fit {SMEM_LIMIT} bytes for 32 texels); "
+            "use ops/ne.py::lm_fit_chunked, which streams the views")
+    lanes = group_lanes(v, views_per_lane(n_angles))
+    return lanes, -(-v // lanes), THREADS // lanes
+
+
+def register_slots(n_angles: int, vpl: int) -> int:
+    """Where K5 keeps a lane's ``vpl`` views: in ``vpl`` register slots while
+    they take at most ``REGISTER_FLOATS`` floats, else 0 — staged in shared
+    memory, each lane in its own column."""
+    return vpl if vpl * (n_angles + 2) <= REGISTER_FLOATS else 0
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    fn = _build.load("lm").brdf_lm_fit
+    lib = _build.load("lm")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [i, p, p, p, p, p, i, i, i, i, p, p, i, f, f, f, f, f, f, i, i, p]
+    fn = lib.brdf_lm_fit
+    fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, p, p, i, f, f, f, f, f, f, i, i, p]
     fn.restype = ctypes.c_int
-    return fn
+    occ = lib.brdf_lm_occupancy
+    occ.argtypes = [i, i, i, i, p]
+    occ.restype = ctypes.c_int
+    return fn, occ
 
 
-def lm_rows_cuda(cfg: LMConfig, ang, y, w, p0_rows) -> torch.Tensor:
-    """Launch K5 on ``(V, T)`` CUDA inputs → the ``(16, T)`` output rows."""
+def occupancy(model: str, v: int) -> dict:
+    """What K5's instantiation for ``model`` at ``v`` views gets on the
+    current card: its layout, register slots (0: staged), resident blocks and
+    warps an SM, registers and local-memory bytes a thread, and the grid the
+    refill launches (the CUDA runtime's own figures)."""
+    spec = PALLAS_MODELS[model]
+    lanes, vpl, block_t = lane_layout(len(spec.angle_names), v)
+    slots = register_slots(len(spec.angle_names), vpl)
+    res = (ctypes.c_int * 5)()
+    err = _entry()[1](spec.lobe_id, slots, lanes, v, res)
+    if err != 0:
+        raise RuntimeError(f"K5 occupancy query failed with cudaError {err}")
+    return dict(lanes=lanes, views_per_lane=vpl, block_t=block_t, slots=slots,
+                blocks_per_sm=res[0], warps_per_sm=res[0] * res[3] // 32, registers=res[1],
+                local_bytes=res[2], persistent_blocks=res[0] * res[4])
+
+
+def lm_rows_cuda(cfg: LMConfig, ang, y, w, p0_rows, counters=None) -> torch.Tensor:
+    """Launch K5 on ``(V, T)`` CUDA inputs → the ``(16, T)`` output rows.
+    ``counters``, an int32 CUDA tensor of 2 the caller may pass to read them
+    afterwards, is zeroed here: [0] the work counter, [1] the warps' trips."""
     global LAUNCHES
     a_count, v, t = ang.shape
     for x in (ang, y, w, p0_rows):
@@ -360,18 +420,25 @@ def lm_rows_cuda(cfg: LMConfig, ang, y, w, p0_rows) -> torch.Tensor:
                          f"w {tuple(w.shape)}, p0 {tuple(p0_rows.shape)}")
     if t >= 2**31 // 16:
         raise ValueError(f"K5 indexes texels with 32-bit ints; T={t} is too large")
+    lanes, vpl, _ = lane_layout(a_count, v)
     out = torch.empty((16, t), dtype=torch.float32, device=ang.device)
     if t == 0:
         return out
-    tb, smem = block_size(a_count, v)
+    if counters is None:
+        counters = torch.zeros(2, dtype=torch.int32, device=ang.device)
+    elif (not counters.is_cuda or counters.dtype != torch.int32 or counters.shape != (2,)
+          or counters.device != ang.device):
+        raise ValueError("K5's counters are an int32 CUDA tensor of 2 on the inputs' device")
+    else:
+        counters.zero_()
     m = spec.n_params
     lower = (ctypes.c_float * m)(*cfg.lower)
     upper = (ctypes.c_float * m)(*cfg.upper)
     stream = torch.cuda.current_stream(ang.device).cuda_stream
-    err = _entry()(
+    err = _entry()[0](
         spec.lobe_id, ang.data_ptr(), y.data_ptr(), w.data_ptr(), p0_rows.data_ptr(),
-        out.data_ptr(), t, v, tb, smem, lower, upper, m,
-        cfg.eps1, cfg.eps2_sq, cfg.eps3, cfg.mu_max, cfg.half_mu_max, cfg.tau,
+        out.data_ptr(), counters.data_ptr(), t, v, lanes, register_slots(a_count, vpl), int(REFILL),
+        lower, upper, m, cfg.eps1, cfg.eps2_sq, cfg.eps3, cfg.mu_max, cfg.half_mu_max, cfg.tau,
         cfg.itmax, int(cfg.marquardt), stream,
     )
     if err != 0:
@@ -404,8 +471,8 @@ def lm_fit_fused(
     the damping state (μ ≤ 0 lanes take the Kanzow init, stop ≠ 0 lanes
     short-circuit and are returned as they came)."""
     cfg = config(model, opts, lower, upper)
-    # a view count the kernel cannot stage is refused on either device
-    block_size(len(PALLAS_MODELS[model].angle_names), target.shape[1])
+    # a view count the kernel does not take is refused on either device
+    lane_layout(len(PALLAS_MODELS[model].angle_names), target.shape[1])
     ang, y, w, rows = stack_inputs(model, angles, target, p0, weights, warm)
     if target.is_cuda:
         out = lm_rows_cuda(cfg, ang, y, w, rows)

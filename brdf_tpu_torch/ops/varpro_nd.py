@@ -26,7 +26,7 @@ back from one to the other.
 
 K8 solves a texel with a group of S lanes, each holding VPL of its views
 (:func:`lane_layout`), and sums over views in that layout's fixed order
-(:func:`group_sum`): each lane's views left to right, then a pairwise tree
+(``ops/lanegroup.py::group_sum``): each lane's views left to right, then a pairwise tree
 over the lanes. The plain version sums in the same order, so the two agree
 bit for bit on the card; the Pallas kernel's ``jnp.sum`` order is XLA's, and
 the tests hold the plain version to it at the solve's float32 chaos.
@@ -43,6 +43,7 @@ import torch
 
 from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles
 from brdf_tpu_torch.ops import _build
+from brdf_tpu_torch.ops.lanegroup import group_lanes, group_sum
 from brdf_tpu_torch.ops.shading import SHADING_KERNELS
 from brdf_tpu_torch.solver.init import default_shape_grid
 from brdf_tpu_torch.solver.varpro import (
@@ -231,27 +232,8 @@ def lane_layout(n_angles: int, d: int, v: int) -> tuple[int, int, int]:
         raise ValueError(
             f"V={v} views do not fit the fused d-D VarPro kernel's registers "
             f"(1 to {max_views(n_angles, d)} views for {n_angles + 4 + d} floats a view)")
-    lanes = 1
-    while lanes < 32 and -(-v // lanes) > VIEWS_PER_LANE:
-        lanes *= 2
+    lanes = group_lanes(v, VIEWS_PER_LANE)
     return lanes, -(-v // lanes), THREADS // lanes
-
-
-def group_sum(x: torch.Tensor, lanes: int, vpl: int) -> torch.Tensor:
-    """K8's sum of ``x`` over its leading (view) axis → shape ``(1, ...)``:
-    lane l's partial adds views l, l + lanes, … left to right from 0 (a slot
-    past the last view leaves the partial as it is); the partials combine as
-    the pairwise tree ((p0 + p1) + (p2 + p3)) + …, the bits every lane of the
-    kernel's XOR butterfly ends with (csrc/lanegroup.cuh)."""
-    v = x.shape[0]
-    acc = torch.zeros((lanes,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    for k in range(vpl):
-        n = min(lanes, v - k * lanes)       # lanes whose slot k holds a view
-        part = acc[:n] + x[k * lanes:k * lanes + n]
-        acc = part if n == lanes else torch.cat([part, acc[n:]])
-    while acc.shape[0] > 1:
-        acc = acc[0::2] + acc[1::2]
-    return acc
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,6 +26,8 @@ per source, in parallel), then:
    its plain version on all ten lobes: a cold solve, a solve cut at 6
    iterations and resumed from its ``(μ, ν, stop)``, and Marquardt damping;
    blinn_phong and cook_torrance at T=131072, the others at T=16384, V=16;
+   then every lobe at T=517 with V = 1, 2, 16, 37, 256 and its largest view
+   count (every lane layout, registers and shared-memory staging);
 8. checks the gates of ``bench.py::_lm_general_row`` through the port
    (cook_torrance_aniso, T=65536, grid init, itmax=24): kd recovery ≥ 0.62
    and χ² p99 ≤ 0.12;
@@ -37,7 +39,10 @@ per source, in parallel), then:
 10. runs the blinn_phong fit in checkpointed chunks of 8 iterations, straight
     through and killed after two chunks and resumed, against the unchunked fit;
 11. times K5 (CUDA events) on the main-path calls and the gates row, with its
-    data-dependent bound, and the warm LM main path;
+    data-dependent bound, its lane layout, warps an SM, registers, spills and
+    issued-over-needed iterations, with and without the refill of texels and
+    at three layouts on the same inputs; ``lm_fit_compacted`` beside
+    ``lm_fit_fused`` on timber-aniso's call; and the warm LM main path;
 12. holds the shading kernels K2, K3 and K4 (``csrc/shade.cu``: forward,
     parameter cotangents, angle cotangents) against their plain versions on
     all ten lobes with full-range cosines: cook_torrance at 1048576 × 16,
@@ -66,10 +71,10 @@ per source, in parallel), then:
     lobes with shared and per-channel weights at 262144 × 16 and 517 × 37; and
     their ``grad`` mode against ``torch.autograd`` of the eager models;
 17. drives the chunked LM tier: ``fit_texels(engine="pallas")`` on 65536
-    texels × 384 views (more than K5 stages for cook_torrance) runs K6 and
+    texels × 384 views (more than K5 takes for cook_torrance) runs K6 and
     not K5, recovers the truth and equals the same loop over K6's plain
-    version; at 256 views the chunked tier beside K5 at one warp a block; at
-    16 views ``lm_fit_chunked`` against ``lm_fit_fused``;
+    version; at 256 views the chunked tier beside K5 (a warp a texel); at
+    16 views ``lm_fit_chunked`` against ``lm_fit_fused``; K5 alone at 256 views;
 18. drives the joint normal-map fit at full width, 131072 texels × 16 views ×
     3 channels: ``fit_joint_normalmap()`` with its defaults (K7) from the grid
     init, from a ``fit_per_texel`` report and with two huber rounds, counting
@@ -663,46 +668,77 @@ def k5_compare(name: str, out_k: torch.Tensor, out_p: torch.Tensor, errs: list[f
     return res
 
 
+def k5_max_views(n_angles: int) -> int:
+    """The most views K5 takes for a lobe of ``n_angles`` channels (fits_fused)."""
+    return k5.SMEM_LIMIT // ((n_angles + 2) * 32 * 4)
+
+
+# the view counts K5 is held at on T_ODD texels beside the main path's shapes:
+# one and two views, the main path's 16, one ragged warp of views, one staged
+# case, and each lobe's largest
+K5_PARITY_VIEWS = (1, 2, 16, 37, 256)
+
+
+def k5_cases(model: str, inputs, name: str, errs: list[float], cases: dict) -> None:
+    """K5 against ``lm_rows_plain`` on one problem: a cold solve with each
+    damping, and (additive) a solve cut at 6 iterations and resumed from its
+    ``(μ, ν, stop)``, which must equal the uninterrupted one."""
+    spec = MODELS[model]
+    v = inputs[0].shape[1]
+    lanes, vpl, _ = k5.lane_layout(inputs[0].shape[0], v)
+    layout = dict(layout=[lanes, vpl], slots=k5.register_slots(inputs[0].shape[0], vpl))
+    for damping in ("add", "marquardt"):
+        opts = LM_OPTS._replace(damping=damping)
+        cfg = k5.config(model, opts, spec.lower, spec.upper)
+        case = f"{name}/{damping}"
+        one_k = k5.lm_rows_cuda(cfg, *inputs)
+        torch.cuda.synchronize()
+        one_p = k5.lm_rows_plain(cfg, *inputs)
+        cases[case + "/cold"] = dict(k5_compare(case + "/cold", one_k, one_p, errs), **layout)
+        if damping == "marquardt":
+            continue
+        # cut at 6 iterations, resume with the returned (μ, ν, stop) for the rest
+        cfg6 = k5.config(model, opts._replace(itmax=6), spec.lower, spec.upper)
+        cfg54 = k5.config(model, opts._replace(itmax=opts.itmax - 6), spec.lower, spec.upper)
+        first_k = k5.lm_rows_cuda(cfg6, *inputs)
+        first_p = k5.lm_rows_plain(cfg6, *inputs)
+        k5_compare(case + "/cut", first_k, first_p, errs)
+        warm_k = k5.lm_rows_cuda(cfg54, *inputs[:3], reopen(first_k))
+        warm_p = k5.lm_rows_plain(cfg54, *inputs[:3], reopen(first_p))
+        res = dict(k5_compare(case + "/warm", warm_k, warm_p, errs), **layout)
+        # a resumed solve is the uninterrupted one: same state, iterations add up
+        cut = first_k[7] == 3.0
+        rows = [0, 1, 2, 3, 4, 5, 7, 9, 10]
+        res["resume_share"] = float(same(warm_k[rows], one_k[rows]).all(0).double().mean())
+        its = torch.where(cut, first_k[6] + warm_k[6], first_k[6])
+        res["resume_iters_share"] = float((its == one_k[6]).double().mean())
+        res["lanes_resumed"] = float(cut.double().mean())
+        log(f"K5 resume {case}: {res['lanes_resumed']:.4f} of lanes resumed, equal to one run on "
+            f"{res['resume_share']:.6f}, iterations add up on {res['resume_iters_share']:.6f}")
+        check(res["resume_share"] == 1.0 and res["resume_iters_share"] == 1.0,
+              f"{case}: a resumed solve differs from the uninterrupted one")
+        cases[case + "/warm"] = res
+
+
 def phase_k5_parity(errs: list[float]) -> dict:
-    """K5 against ``lm_rows_plain`` on identical inputs on the card."""
+    """K5 against ``lm_rows_plain`` on identical inputs on the card: all ten
+    lobes at the main path's V=16 (blinn_phong and cook_torrance at T_BENCH,
+    the rest at T_SMALL), then at T_ODD texels with V = 1, 2, 16, 37, 256 and
+    the lobe's largest ``fits_fused`` V — every lane layout and both kinds of
+    view storage; cold, cut and warm, both dampings; the bar is equality."""
     rng = np.random.default_rng(3)
     cases = {}
     for model in ALL_LOBES:
         t = T_BENCH if model in ("blinn_phong", "cook_torrance") else T_SMALL
-        spec = MODELS[model]
         ang, target, p0, _ = make_lm_problem(rng, t, V, model)
-        inputs = k5.stack_inputs(model, ang, target, p0)
-        for damping in ("add", "marquardt"):
-            opts = LM_OPTS._replace(damping=damping)
-            cfg = k5.config(model, opts, spec.lower, spec.upper)
-            name = f"{model}/T={t}/{damping}"
-            one_k = k5.lm_rows_cuda(cfg, *inputs)
-            torch.cuda.synchronize()
-            one_p = k5.lm_rows_plain(cfg, *inputs)
-            cases[name + "/cold"] = k5_compare(name + "/cold", one_k, one_p, errs)
-            if damping == "marquardt":
-                continue
-            # cut at 6 iterations, resume with the returned (μ, ν, stop) for the rest
-            cfg6 = k5.config(model, opts._replace(itmax=6), spec.lower, spec.upper)
-            cfg54 = k5.config(model, opts._replace(itmax=opts.itmax - 6), spec.lower, spec.upper)
-            first_k = k5.lm_rows_cuda(cfg6, *inputs)
-            first_p = k5.lm_rows_plain(cfg6, *inputs)
-            k5_compare(name + "/cut", first_k, first_p, errs)
-            warm_k = k5.lm_rows_cuda(cfg54, *inputs[:3], reopen(first_k))
-            warm_p = k5.lm_rows_plain(cfg54, *inputs[:3], reopen(first_p))
-            res = k5_compare(name + "/warm", warm_k, warm_p, errs)
-            # a resumed solve is the uninterrupted one: same state, iterations add up
-            cut = first_k[7] == 3.0
-            rows = [0, 1, 2, 3, 4, 5, 7, 9, 10]
-            res["resume_share"] = float(same(warm_k[rows], one_k[rows]).all(0).double().mean())
-            its = torch.where(cut, first_k[6] + warm_k[6], first_k[6])
-            res["resume_iters_share"] = float((its == one_k[6]).double().mean())
-            res["lanes_resumed"] = float(cut.double().mean())
-            log(f"K5 resume {name}: {res['lanes_resumed']:.4f} of lanes resumed, equal to one run on "
-                f"{res['resume_share']:.6f}, iterations add up on {res['resume_iters_share']:.6f}")
-            check(res["resume_share"] == 1.0 and res["resume_iters_share"] == 1.0,
-                  f"{name}: a resumed solve differs from the uninterrupted one")
-            cases[name + "/warm"] = res
+        k5_cases(model, k5.stack_inputs(model, ang, target, p0), f"{model}/T={t}/V={V}",
+                 errs, cases)
+        del ang, target, p0
+        v_max = k5_max_views(len(k0.SHADING_KERNELS[model].angle_names))
+        for v in sorted({x for x in K5_PARITY_VIEWS if x <= v_max} | {v_max}):
+            ang, target, p0, _ = make_lm_problem(rng, T_ODD, v, model)
+            k5_cases(model, k5.stack_inputs(model, ang, target, p0), f"{model}/T={T_ODD}/V={v}",
+                     errs, cases)
     return cases
 
 
@@ -887,12 +923,62 @@ def phase_chunked(problem: TexelProblem) -> dict:
     return out
 
 
+# the lane layouts timed against each other at V=16 (S lanes a texel, VPL
+# views a lane), each with and without the refill; lane_layout's choice
+# among them rests on these times
+K5_LAYOUTS_V16 = ((1, 16), (2, 8), (4, 4), (8, 2), (16, 1))
+
+
+def k5_ptxas(model: str, slots: int) -> dict | None:
+    """What the assembler said of K5's instantiation for ``model`` and slots."""
+    key = f"lm_kernelILi{k0.SHADING_KERNELS[model].lobe_id}ELi{slots}E"
+    return next((e for e in ptxas_numbers().get("lm", []) if key in e["entry"]), None)
+
+
+def k5_timed(model: str, cfg, inputs, layout=None, refill=True, staged=False) -> dict:
+    """K5's time (CUDA events, 20 back-to-back launches, median of 3) with
+    its layout, view storage, occupancy, registers and issued-over-needed
+    iterations, at ``lane_layout``'s choice or at ``layout`` = (S, VPL)
+    forced in its place, with or without the refill, the views where
+    ``register_slots`` puts them or (``staged``) in shared memory. Its rows
+    must equal the refilled launch's at the same layout: which group took a
+    texel changes nothing."""
+    patches = ExitStack()
+    if layout is not None:
+        patches.enter_context(mock.patch.object(
+            k5, "lane_layout", lambda a, v: (*layout, k5.THREADS // layout[0])))
+    if staged:
+        patches.enter_context(mock.patch.object(k5, "register_slots", lambda a, vpl: 0))
+    counters = torch.zeros(2, dtype=torch.int32, device=DEVICE)
+    with patches:
+        with mock.patch.object(k5, "REFILL", True):
+            ref = k5.lm_rows_cuda(cfg, *inputs)
+        with mock.patch.object(k5, "REFILL", refill):
+            rows = k5.lm_rows_cuda(cfg, *inputs, counters=counters)
+            trips = int(counters[1])
+            ms = cuda_ms(lambda: k5.lm_rows_cuda(cfg, *inputs), reps=20)
+        occ = k5.occupancy(model, inputs[0].shape[1])
+    check(bool(same(rows, ref).all()), f"K5 {model} at {layout}: refill={refill} changed the rows")
+    lanes = occ["lanes"]
+    ptx = k5_ptxas(model, occ["slots"]) or {}
+    return dict(ms=ms, refill=refill, layout=[lanes, occ["views_per_lane"]], slots=occ["slots"],
+                warps_per_sm=occ["warps_per_sm"], registers=occ["registers"],
+                local_bytes=occ["local_bytes"],
+                spill_bytes=ptx.get("spill_store_bytes", 0) + ptx.get("spill_load_bytes", 0),
+                stack_bytes=ptx.get("stack_bytes"), warp_trips=trips,
+                issued_over_needed=trips * (32 // lanes) / max(float(rows[6].double().sum()), 1.0))
+
+
 def phase_lm_timing(problems: dict, gates_row) -> dict:
     """K5 per launch (CUDA events; 20 back-to-back launches, median of 3
     runs) and its plain version (one run between events) at round 0 of each
     main-path fit (393216 lanes, saturation weights, grid-init start) and on
-    the gates row, each with the bound its own iteration counts give."""
-    calls = {}
+    the gates row, each with the bound its own iteration counts give; with
+    the layout, warps an SM, registers and spills and the issued-over-needed
+    iterations, with and without the refill, at ``lane_layout``'s choice and
+    at each of ``K5_LAYOUTS_V16``. On timber-aniso's call also
+    ``lm_fit_compacted`` beside ``lm_fit_fused``, both over K5."""
+    calls, public = {}, {}
     for name, cfg in LM_MAIN_PATH.items():
         model, problem = cfg["model"], problems[name]
         spec = MODELS[model]
@@ -902,16 +988,17 @@ def phase_lm_timing(problems: dict, gates_row) -> dict:
         w = (y < 0.98).float()
         with torch.no_grad():
             p0 = linear_grid_init(model, ang, y, weights=w)
-        lm_cfg = k5.config(model, LM_OPTS, spec.lower if cfg["lower"] is None else cfg["lower"],
-                           spec.upper if cfg["upper"] is None else cfg["upper"])
+        box = (tuple(spec.lower if cfg["lower"] is None else cfg["lower"]),
+               tuple(spec.upper if cfg["upper"] is None else cfg["upper"]))
+        lm_cfg = k5.config(model, LM_OPTS, *box)
         calls[name] = (model, lm_cfg, k5.stack_inputs(model, ang, y, p0, w))
+        public[name] = (model, ang, y, p0, w, box)
     calls["lm-general-row"] = gates_row
     saved = k5.LAUNCHES
     res = {}
     for key, (model, lm_cfg, inputs) in calls.items():
         t = inputs[0].shape[-1]
         rows = k5.lm_rows_cuda(lm_cfg, *inputs)
-        ms = cuda_ms(lambda: k5.lm_rows_cuda(lm_cfg, *inputs), reps=20)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         k5.lm_rows_plain(lm_cfg, *inputs)
@@ -921,13 +1008,39 @@ def phase_lm_timing(problems: dict, gates_row) -> dict:
         ops, nbytes = k5_operations(model, V, rows[6]), k5_bytes(model, t, V)
         bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / FP32_OPS_PER_S * 1e3}
         by = max(bound, key=bound.get)
+        chosen = k5_timed(model, lm_cfg, inputs)
         res[key] = dict(model=model, texels=t, itmax=lm_cfg.itmax, iters_mean=float(rows[6].mean()),
-                        iters_max=float(rows[6].max()), warp_wait=warp_wait(rows[6]),
-                        ms=ms, plain_ms=plain_ms,
-                        fits_per_s=t / (ms * 1e-3), bytes=nbytes, operations=ops,
-                        bound_ms=bound[by], bound_by=by, bound_bytes_ms=bound["bytes"],
-                        bound_operations_ms=bound["operations"])
+                        iters_max=float(rows[6].max()),
+                        warp_wait_one_thread_a_texel=warp_wait(rows[6]),
+                        **chosen, no_refill=k5_timed(model, lm_cfg, inputs, refill=False),
+                        plain_ms=plain_ms, fits_per_s=t / (chosen["ms"] * 1e-3), bytes=nbytes,
+                        operations=ops, bound_ms=bound[by], bound_by=by,
+                        bound_bytes_ms=bound["bytes"], bound_operations_ms=bound["operations"])
+        res[key]["share_of_bound"] = res[key]["bound_ms"] / chosen["ms"]
+        if chosen["slots"] > 0:                  # the same layout with its views staged
+            res[key]["staged"] = k5_timed(model, lm_cfg, inputs, staged=True)
+        res[key]["layouts_v16"] = [k5_timed(model, lm_cfg, inputs, layout, refill)
+                                   for layout in K5_LAYOUTS_V16 for refill in (True, False)]
         log(f"K5 timing {key}: {res[key]}")
+    # lm_fit_compacted (two fused fits around gathers and scatters) against one
+    # fused fit on the timber-aniso call: what the refill leaves compaction
+    model, ang, y, p0, w, (lo, hi) = public["timber-aniso"]
+    kw = dict(weights=w, opts=LM_OPTS, lower=lo, upper=hi)
+    fused = k5.lm_fit_fused(model, ang, y, p0, **kw)
+    before = k5.LAUNCHES
+    compacted = k5.lm_fit_compacted(model, ang, y, p0, **kw)
+    torch.cuda.synchronize()
+    res["compacted-timber-aniso"] = dict(
+        model=model, texels=y.shape[0], launches=k5.LAUNCHES - before,
+        fused_wall_ms=warm_wall_ms(lambda: k5.lm_fit_fused(model, ang, y, p0, **kw), reps=5),
+        compacted_wall_ms=warm_wall_ms(
+            lambda: k5.lm_fit_compacted(model, ang, y, p0, **kw), reps=5),
+        fused_chi2_median=float(fused.chi2.median()),
+        compacted_chi2_median=float(compacted.chi2.median()),
+        fused_iters_mean=float(fused.iters.double().mean()),
+        compacted_iters_mean=float(compacted.iters.double().mean()),
+        same_result_share=float(same(compacted.p, fused.p).all(-1).double().mean()))
+    log(f"K5 lm_fit_compacted against lm_fit_fused: {res['compacted-timber-aniso']}")
     k5.LAUNCHES = saved                          # timing launches are not the main path's
     return res
 
@@ -1660,11 +1773,11 @@ def warm_wall_ms(fn, reps: int = 3) -> float:
 
 def phase_chunked_tier(errs: list[float]) -> tuple[int, dict]:
     """The long-view-axis tier. ``fit_texels(engine="pallas")`` at 384 views,
-    which K5 cannot stage for cook_torrance, must run K6 (two launches a pass
+    more than K5 takes for cook_torrance, must run K6 (two launches a pass
     and one before the loop) and not K5, recover the truth within 1e-2 on more
     than 0.9 of the lanes (tests/test_lm_chunked.py's bar at 256 views) and
-    equal the same loop over K6's plain version. At 256 views K5 still stages
-    the views, at one warp a block: both tiers are timed there. At 16 views
+    equal the same loop over K6's plain version. At 256 views K5 takes a warp
+    a texel, its views staged: both tiers are timed there, and K5 alone. At 16 views
     the chunked tier follows the fused one (the same LM; the two sum Jᵀe in
     another association, and accept decisions flip at one ulp, so the bar is a
     share of lanes: counts equal on ≥ 0.8, and on those the parameters within
@@ -1673,7 +1786,7 @@ def phase_chunked_tier(errs: list[float]) -> tuple[int, dict]:
     spec = MODELS[model]
     rng = np.random.default_rng(63)
     check(not k5.fits_fused(3, V_CHUNKED) and k5.fits_fused(3, V_ONE_WARP),
-          "K5 stages 256 views of cook_torrance and not 384")
+          "K5 takes 256 views of cook_torrance and not 384")
     ang, target, true_p = make_problem(rng, T_CHUNKED, V_CHUNKED, model)
 
     def fit():
@@ -1711,12 +1824,22 @@ def phase_chunked_tier(errs: list[float]) -> tuple[int, dict]:
     log(f"chunked tier, fit_texels at {V_CHUNKED} views: {routed}")
     del ang, target, ref
 
-    # 256 views: K5 at one warp a block beside the chunked tier, from one start
+    # 256 views: K5 (a warp a texel, the views staged in shared memory) beside
+    # the chunked tier, from one start; and K5 alone (CUDA events) with its bound
     ang, target, true_p = make_problem(rng, T_CHUNKED, V_ONE_WARP, model)
     with torch.no_grad():
         p0 = linear_grid_init(model, ang, target)
     kw = dict(opts=CHUNKED_OPTS, lower=tuple(spec.lower), upper=tuple(spec.upper))
-    one_warp = dict(texels=T_CHUNKED, views=V_ONE_WARP, k5_block=k5.block_size(3, V_ONE_WARP)[0])
+    k5_cfg = k5.config(model, CHUNKED_OPTS, spec.lower, spec.upper)
+    k5_in = k5.stack_inputs(model, ang, target, p0)
+    k5_rows = k5.lm_rows_cuda(k5_cfg, *k5_in)
+    k5_ops, k5_nbytes = k5_operations(model, V_ONE_WARP, k5_rows[6]), k5_bytes(model, T_CHUNKED,
+                                                                               V_ONE_WARP)
+    one_warp = dict(texels=T_CHUNKED, views=V_ONE_WARP,
+                    k5=dict(k5_timed(model, k5_cfg, k5_in),
+                            iters_mean=float(k5_rows[6].mean()),
+                            **bound_of(k5_nbytes, k5_ops)))
+    del k5_in, k5_rows
     for name, fn in (("chunked", k6.lm_fit_chunked), ("fused", k5.lm_fit_fused)):
         r = fn(model, ang, target, p0, **kw)
         one_warp[name] = dict(recovery_frac=recovery(r.p.cpu().numpy(), true_p),
@@ -2665,6 +2788,10 @@ def main() -> int:
         "bound_ms": k5_t["bound_ms"],
         "bound_by": k5_t["bound_by"],
         "library_ms": None,
+        "layout": k5_t["layout"],
+        "refill": k5_t["refill"],
+        "warps_per_sm": k5_t["warps_per_sm"],
+        "issued_over_needed": k5_t["issued_over_needed"],
     }, {
         # full mode with weights on the routed fit's shape (cook_torrance, 65536 x 384)
         "name": "ne_k6",

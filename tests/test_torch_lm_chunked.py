@@ -170,13 +170,14 @@ def test_warm_resume_in_two_chunks_equals_straight_through():
 
 def test_256_views_match_the_eager_tier():
     """tests/test_lm_chunked.py::test_large_view_count_matches_lax_tier: a
-    256-view rig (more than the fused kernel can stage for a nine-channel
-    lobe, and a single warp a block for this one) through the chunked tier
-    and through ``levmar_bc``."""
+    256-view rig (more than the fused kernel takes for a nine-channel
+    lobe, and a whole warp a texel with its views staged in shared memory for
+    this one) through the chunked tier and through ``levmar_bc``."""
     model = "cook_torrance"
     _, ta, target, p0, true_p = _problem(model, 96, 256, seed=2)
     spec = MODELS[model]
-    assert not k5.fits_fused(9, 256) and k5.block_size(3, 256)[0] == 32
+    assert not k5.fits_fused(9, 256) and k5.lane_layout(3, 256)[0] == 32
+    assert k5.register_slots(3, k5.lane_layout(3, 256)[1]) == 0
     y, start = torch.tensor(target), torch.tensor(p0)
     r_c = ne.lm_fit_chunked(model, ta, y, start, opts=LMOptions(**OPTS),
                             lower=tuple(spec.lower), upper=tuple(spec.upper))

@@ -284,10 +284,11 @@ def test_wrapper_checks_bounds_views_and_device():
                         lower=(0.0, 0.0, 0.0), upper=(1.0, 1.0, 1.0))
     with pytest.raises(ValueError, match="damping"):
         k5.config("lambert", LMOptions(damping="none"), (0.0,), (1.0,))
-    assert k5.block_size(9, 16) == (128, 11 * 16 * 128 * 4)
-    assert k5.block_size(9, 64)[0] == 64          # the block shrinks for more views
+    lanes, vpl, block_t = k5.lane_layout(9, 16)
+    assert vpl == -(-16 // lanes) <= k5.views_per_lane(9) and lanes * block_t == k5.THREADS
+    assert k5.lane_layout(9, 64)[0] > lanes       # a texel takes more lanes for more views
     with pytest.raises(ValueError, match="lm_fit_chunked"):     # the chunked tier's view counts
-        k5.block_size(9, 256)
+        k5.lane_layout(9, 256)
     cfg = k5.config("lambert", LMOptions(), (0.0,), (1.0,))
     rows = k5.stack_inputs("lambert", ta, torch.tensor(target), torch.tensor(p0))
     with pytest.raises(ValueError, match="CUDA"):
