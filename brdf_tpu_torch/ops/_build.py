@@ -7,7 +7,8 @@ seconds, where a build against PyTorch's headers takes minutes. A library
 is rebuilt when any ``csrc`` source is newer than it. :func:`build_all`
 starts one ``nvcc`` per source, all at once. Every build runs with
 ``-Xptxas -v``; what the assembler said of each kernel (registers, spills)
-is kept in :data:`BUILD_LOGS` and read with :func:`ptxas_report`.
+is kept in :data:`BUILD_LOGS` and read with :func:`ptxas_report`, and each
+build's wall seconds in :data:`BUILD_SECONDS`.
 
 Nothing here runs at import time: this module is imported on machines that
 have no ``nvcc`` and no GPU.
@@ -22,6 +23,8 @@ import re
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -36,8 +39,9 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 SOURCES = ("varpro", "lm", "lobes_eval", "shade", "ne", "joint_ne", "varpro_nd")
-# nvcc's output for each source built by this process
+# nvcc's output, and its wall seconds, for each source built by this process
 BUILD_LOGS: dict[str, str] = {}
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -62,22 +66,21 @@ def _stale(name: str) -> bool:
     return lib.stat().st_mtime < newest
 
 
-def _start(name: str) -> tuple[subprocess.Popen, str]:
-    """Start nvcc for one source into a temporary file beside the library
-    (renamed into place on success, so a reader never sees half a file)."""
+def _compile(name: str) -> None:
+    """nvcc for one source into a temporary file beside the library (renamed
+    into place on success, so a reader never sees half a file), its output
+    and wall seconds noted."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(prefix=f"lib{name}.", suffix=".so.tmp", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp
-
-
-def _finish(name: str, proc: subprocess.Popen, tmp: str) -> None:
-    log, _ = proc.communicate()
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-    BUILD_LOGS[name] = log
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}")
+    BUILD_LOGS[name] = proc.stdout
+    BUILD_SECONDS[name] = time.perf_counter() - t0
     os.replace(tmp, library_path(name))
 
 
@@ -109,21 +112,19 @@ def ptxas_report(log: str) -> list[dict]:
 def build(name: str) -> Path:
     """Build ``csrc/<name>.cu`` if its library is missing or stale."""
     if _stale(name):
-        _finish(name, *_start(name))
+        _compile(name)
     return library_path(name)
 
 
 def build_all() -> list[Path]:
     """Build every stale source, one ``nvcc`` process each, in parallel."""
-    started = {name: _start(name) for name in SOURCES if _stale(name)}
-    errors = []
-    for name, (proc, tmp) in started.items():
-        try:
-            _finish(name, proc, tmp)
-        except RuntimeError as exc:
-            errors.append(str(exc))
-    if errors:
-        raise RuntimeError("\n".join(errors))
+    stale = [name for name in SOURCES if _stale(name)]
+    if stale:
+        with ThreadPoolExecutor(max_workers=len(stale)) as pool:
+            runs = [pool.submit(_compile, name) for name in stale]
+        errors = [str(run.exception()) for run in runs if run.exception() is not None]
+        if errors:
+            raise RuntimeError("\n".join(errors))
     return [library_path(name) for name in SOURCES]
 
 

@@ -15,11 +15,16 @@ CUDA tensors (counting the launch in :data:`LAUNCHES`) and run the plain
 version for CPU tensors. Neither stands in for the other.
 
 On the TPU the view axis is cut into chunks that fit the fast memory and the
-texel axis into blocks; on the GPU one thread owns a texel and walks all its
-views, so ``view_block`` and ``block_t`` are gone from every signature here,
-nothing is padded, and the view count is unbounded by construction. There is
-no ``interpret`` either, and ``axis_name`` (a view axis sharded over devices)
-raises: multi-GPU is ROADMAP.md Queue A items 5 and 11.
+texel axis into blocks; on the GPU a texel's views are split over the W warps
+of a block that share 32 texels (W = 1 is one thread walking every view),
+each adding its views left to right from 0, and the W partials meet as a
+pairwise tree. :func:`ne_layout` picks W from the kernel, m, the mode and V,
+and the wrappers and the plain versions both call it, so they sum in one
+order (``ops/lanegroup.py::group_sum``). So ``view_block`` and ``block_t``
+are gone from every signature here, nothing is padded, and the view count is
+unbounded by construction. There is no ``interpret`` either, and
+``axis_name`` (a view axis sharded over devices) raises: multi-GPU is
+ROADMAP.md Queue A items 5 and 11.
 
 :func:`chunked_lm_loop` is ``_chunked_lm_loop``: the box-projected LM of
 ``ops/lm.py`` (one solve per iteration, Kanzow μ init, active-set freeze,
@@ -42,6 +47,7 @@ import torch
 
 from brdf_tpu_torch.models.brdf import ShadingAngles, ShadingGeometry
 from brdf_tpu_torch.models.normalmap import tangent_basis
+from brdf_tpu_torch.ops.lanegroup import group_sum
 from brdf_tpu_torch.ops.lm import (
     _DEFAULT_OPTS,
     _TINY,
@@ -74,14 +80,47 @@ def ne_rows_count(m: int, mode: str) -> int:
     return {"chi2": 1, "grad": 1 + m, "full": 1 + m * (m + 1) // 2 + m}[mode]
 
 
-def _view_sum(terms: list[torch.Tensor]) -> torch.Tensor:
-    """``Σ_v Σ_c terms[c][v]``: views outside, the listed tensors inside, left
-    to right from zero — the order of the kernels' per-thread sums."""
-    acc = torch.zeros_like(terms[0][0])
-    for v in range(terms[0].shape[0]):
-        for x in terms:
-            acc = acc + x[v]
-    return acc
+# W, the warps a texel's views are split over (csrc/lanegroup.cuh): a power of
+# two up to MAX_WARPS whose partials, R · W · 32 floats, fit SMEM_LIMIT, the
+# default 48 KB a block (the kernels ask for no more). W = 1 is one thread a
+# texel.
+ONE_THREAD = 1
+MAX_WARPS = 8
+SMEM_LIMIT = 48 * 1024
+# never fewer views a warp than this: at 16 views a split only adds the
+# per-texel set-up and the combine (PERF.md)
+MIN_VIEWS_PER_PART = 16
+
+
+def ne_layout(kernel: str, m: int, mode: str, v: int) -> int:
+    """The warps W a texel's views are split over in K6 (``kernel="ne"``, an
+    m-parameter lobe) or K7 (``"joint_ne"``, m = 9) in ``mode`` at ``v``
+    views: a pure function, so that the CUDA wrapper and the plain version
+    sum in the same order. The most warps :func:`layout_fits` allows that
+    keep ``MIN_VIEWS_PER_PART`` views a warp; one thread a texel below
+    2 · ``MIN_VIEWS_PER_PART`` views. It reads no texel count, so a texel's
+    rows do not depend on the batch it is fitted in."""
+    if kernel not in ("ne", "joint_ne") or mode not in MODES:
+        raise ValueError(f"no layout for kernel {kernel!r} in mode {mode!r}")
+    warps = ONE_THREAD
+    while v >= 2 * warps * MIN_VIEWS_PER_PART and layout_fits(m, mode, 2 * warps):
+        warps *= 2
+    return warps
+
+
+def layout_fits(m: int, mode: str, warps: int) -> bool:
+    """Whether K6 or K7 (m = 9) take a split of ``warps`` in ``mode``: a
+    power of two up to ``MAX_WARPS`` whose partials fit ``SMEM_LIMIT``."""
+    return (1 <= warps <= MAX_WARPS and not warps & (warps - 1)
+            and ne_rows_count(m, mode) * warps * 32 * 4 <= SMEM_LIMIT)
+
+
+def _layout_sum(warps: int, v: int):
+    """Σ over the view axis in a split of ``warps``'s order (``group_sum``; a
+    list of terms adds them in list order within each view) → the ``(...)``
+    sum."""
+    vpl = -(-v // warps)
+    return lambda terms: group_sum(terms, warps, vpl)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -92,9 +131,12 @@ def _view_sum(terms: list[torch.Tensor]) -> torch.Tensor:
 def ne_rows_plain(model: str, mode: str, ang, y, w, p_rows) -> torch.Tensor:
     """K6's plain version: ``ang (A, V, T)``, ``y (V, T)``, ``w (V, T)`` or
     ``None``, ``p_rows (m, T)`` → ``(R, T)`` rows: χ², then (j, k) for j ≤ k,
-    then g (see :func:`ne_rows_count`)."""
+    then g (see :func:`ne_rows_count`), each summed over the views in
+    :func:`ne_layout`'s order."""
     spec = SHADING_KERNELS[model]
     m = spec.n_params
+    v = y.shape[0]
+    view_sum = _layout_sum(ne_layout("ne", m, mode, v), v)
     i_val, d, _ = spec.eval(tuple(ang), tuple(p_rows[j:j + 1] for j in range(m)))
     if w is not None:
         r = (i_val - y) * w
@@ -103,14 +145,14 @@ def ne_rows_plain(model: str, mode: str, ang, y, w, p_rows) -> torch.Tensor:
     else:
         r = i_val - y
         rw = r
-    rows = [_view_sum([r * r])]
+    rows = [view_sum(r * r)]
     if mode == "full":
         for j in range(m):
             for k in range(j, m):
                 dd = d[j] * d[k]
-                rows.append(_view_sum([dd * w2 if w is not None else dd]))
+                rows.append(view_sum(dd * w2 if w is not None else dd))
     if mode in ("full", "grad"):
-        rows.extend(_view_sum([d[j] * rw]) for j in range(m))
+        rows.extend(view_sum(d[j] * rw) for j in range(m))
     return torch.stack(rows)
 
 
@@ -122,15 +164,50 @@ def _check_cuda(name: str, first: torch.Tensor, *rest: torch.Tensor) -> None:
             raise ValueError(f"{name}'s inputs must lie on one device")
 
 
-@functools.lru_cache(maxsize=None)
-def _ne_entry():
+def _checked_layout(name: str, kernel: str, m: int, mode: str, v: int) -> int:
+    warps = ne_layout(kernel, m, mode, v)
+    if not layout_fits(m, mode, warps):
+        raise ValueError(f"{name} does not take a split of {warps} warps in {mode} mode")
+    return warps
+
+
+def _load_entries(name: str, args: list, occ_args: list):
+    """The kernel's launch and occupancy entries of ``csrc/<name>.cu``."""
     from brdf_tpu_torch.ops import _build
 
-    fn = _build.load("ne").brdf_ne_rows
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, i, p, p, p, p, p, i, i, p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.load(name)
+    fn, occ = getattr(lib, f"brdf_{name}_rows"), getattr(lib, f"brdf_{name}_occupancy")
+    fn.argtypes, occ.argtypes = args, occ_args
+    fn.restype = occ.restype = ctypes.c_int
+    return fn, occ
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _ne_entry():
+    return _load_entries("ne", [_I] * 3 + [_P] * 5 + [_I, _I, _P], [_I] * 4 + [_P])
+
+
+@functools.lru_cache(maxsize=None)
+def _joint_entry():
+    return _load_entries("joint_ne", [_I] * 3 + [_P] * 6 + [_I, _I, _P], [_I] * 3 + [_P])
+
+
+def occupancy(kernel: str, model: str, mode: str, warps: int, weighted: bool = True) -> dict:
+    """What K6 (``kernel="ne"``) or K7 (``"joint_ne"``, ``model`` its base
+    lobe) gets at a split of ``warps`` on the current card: resident blocks
+    and warps an SM, registers and local-memory bytes a thread, threads a
+    block (the CUDA runtime's own figures)."""
+    res = (ctypes.c_int * 4)()
+    args = (SHADING_KERNELS[model].lobe_id, MODES[mode], *((int(weighted),) if kernel == "ne" else ()),
+            warps, res)
+    err = (_ne_entry if kernel == "ne" else _joint_entry)()[1](*args)
+    if err != 0:
+        raise RuntimeError(f"{kernel} occupancy query failed with cudaError {err}")
+    return dict(warps=warps, blocks_per_sm=res[0], warps_per_sm=res[0] * res[3] // 32,
+                registers=res[1], local_bytes=res[2], threads_per_block=res[3])
 
 
 def ne_rows_cuda(model: str, mode: str, ang, y, w, p_rows) -> torch.Tensor:
@@ -155,11 +232,12 @@ def ne_rows_cuda(model: str, mode: str, ang, y, w, p_rows) -> torch.Tensor:
         return out
     if v == 0:
         return out.zero_()
+    warps = _checked_layout("K6", "ne", m, mode, v)
     stream = torch.cuda.current_stream(ang.device).cuda_stream
     with torch.cuda.device(ang.device):
-        err = _ne_entry()(spec.lobe_id, MODES[mode], ang.data_ptr(), y.data_ptr(),
-                          None if w is None else w.data_ptr(), p_rows.data_ptr(),
-                          out.data_ptr(), t, v, stream)
+        err = _ne_entry()[0](spec.lobe_id, MODES[mode], warps, ang.data_ptr(), y.data_ptr(),
+                             None if w is None else w.data_ptr(), p_rows.data_ptr(),
+                             out.data_ptr(), t, v, stream)
     if err != 0:
         raise RuntimeError(f"K6 (csrc/ne.cu) launch failed with cudaError {err}")
     LAUNCHES["ne"] += 1
@@ -194,8 +272,10 @@ def _inv_norm(x):
 def joint_ne_rows_plain(base_model: str, mode: str, lv, y, w, p_rows, frame) -> torch.Tensor:
     """K7's plain version: ``lv (6, V, T)`` light then eye unit vectors,
     ``y``/``w (3, V, T)`` per channel, ``p_rows (9, T)``, ``frame (9, T)`` =
-    (n, t, b) → ``(R, T)`` rows of the m = 9 normal equations, R = 1, 10, 55.
-    The 12 structurally zero entries of the 45 are zeros."""
+    (n, t, b) → ``(R, T)`` rows of the m = 9 normal equations, R = 1, 10, 55,
+    each summed in :func:`ne_layout`'s order with the three channels' terms
+    added in order within a view. The 12 structurally zero entries of the 45
+    are zeros."""
     spec = SHADING_KERNELS[base_model]
     m = JOINT_M
     p = [p_rows[j:j + 1] for j in range(m)]
@@ -262,26 +342,16 @@ def joint_ne_rows_plain(base_model: str, mode: str, lv, y, w, p_rows, frame) -> 
                 for k in keys[ji:]:
                     a_terms.setdefault((j, k), []).append(cols[j] * cols[k] * w2)
 
-    rows = [_view_sum(chi2_terms)]
+    view_sum = _layout_sum(ne_layout("joint_ne", m, mode, lv.shape[1]), lv.shape[1])
+    rows = [view_sum(chi2_terms)]
     zero = torch.zeros_like(rows[0])
     if mode == "full":
         for j in range(m):
             for k in range(j, m):
-                rows.append(_view_sum(a_terms[(j, k)]) if (j, k) in a_terms else zero)
+                rows.append(view_sum(a_terms[(j, k)]) if (j, k) in a_terms else zero)
     if mode in ("full", "grad"):
-        rows.extend(_view_sum(g_terms[j]) for j in range(m))
+        rows.extend(view_sum(g_terms[j]) for j in range(m))
     return torch.stack(rows)
-
-
-@functools.lru_cache(maxsize=None)
-def _joint_entry():
-    from brdf_tpu_torch.ops import _build
-
-    fn = _build.load("joint_ne").brdf_joint_ne_rows
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, i, p, p, p, p, p, p, i, i, p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _check_joint(base_model: str, mode: str) -> None:
@@ -310,11 +380,12 @@ def joint_ne_rows_cuda(base_model: str, mode: str, lv, y, w, p_rows, frame) -> t
         return out
     if v == 0:
         return out.zero_()
+    warps = _checked_layout("K7", "joint_ne", JOINT_M, mode, v)
     stream = torch.cuda.current_stream(lv.device).cuda_stream
     with torch.cuda.device(lv.device):
-        err = _joint_entry()(SHADING_KERNELS[base_model].lobe_id, MODES[mode], lv.data_ptr(),
-                             y.data_ptr(), w.data_ptr(), p_rows.data_ptr(), frame.data_ptr(),
-                             out.data_ptr(), t, v, stream)
+        err = _joint_entry()[0](
+            SHADING_KERNELS[base_model].lobe_id, MODES[mode], warps, lv.data_ptr(), y.data_ptr(), w.data_ptr(), p_rows.data_ptr(), frame.data_ptr(),
+            out.data_ptr(), t, v, stream)
     if err != 0:
         raise RuntimeError(f"K7 (csrc/joint_ne.cu) launch failed with cudaError {err}")
     LAUNCHES["joint_ne"] += 1

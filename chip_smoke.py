@@ -1562,36 +1562,68 @@ def make_ne_case(rng: np.random.Generator, model: str, t: int, v: int, edges: bo
     return ang, as_t(rng.uniform(0.0, 1.0, (v, t))), as_t(rng.uniform(0.2, 1.0, (v, t))), prm
 
 
+# the splits of a texel's views K6 and K7 are compared and timed at: one
+# thread a texel and W warps a block (ops/ne.py::ne_layout picks)
+NE_LAYOUTS = (1, 2, 4, 8)
+# view counts K6 and K7 are compared at on 517 texels, beside the cases below
+NE_ODD_VIEWS = (1, 5, 37, 384, 600)
+
+
+def layout_key(warps: int) -> str:
+    return f"warps/{warps}"
+
+
+def at_layout(warps: int):
+    """``ne_layout`` forced to a split of ``warps`` for the wrappers and the
+    plain versions alike."""
+    return mock.patch.object(k6, "ne_layout", lambda *a: warps)
+
+
+def ne_layouts(kernel: str, m: int, mode: str, v: int) -> list:
+    """The splits a case is compared at: ``ne_layout``'s pick, then every
+    timed candidate the kernel takes in ``mode``."""
+    chosen = k6.ne_layout(kernel, m, mode, v)
+    return [chosen] + [lay for lay in NE_LAYOUTS if lay != chosen and k6.layout_fits(m, mode, lay)]
+
+
 def phase_ne_parity(errs: list[float]) -> dict:
     """K6 against ``ne_rows_plain`` on identical inputs on the card, every
-    lobe, mode and weight variant. Both run lobes.cuh's arithmetic without FMA
-    and sum the views left to right, so the bar is equality, NaN with NaN."""
+    lobe, mode and weight variant, at ``ne_layout``'s pick and at every
+    candidate of ``NE_LAYOUTS``. Both run lobes.cuh's arithmetic without FMA
+    and sum the views in the layout's order, so the bar is equality, NaN with
+    NaN."""
     rng = np.random.default_rng(61)
     cases = [(model, {"cook_torrance": T_SHADE, "ward_aniso": T_BENCH * CHANNELS}.get(model, T_SMALL),
               V, False) for model in ALL_LOBES]
     cases += [("blinn_phong", 517, 600, False)]
     cases += [(model, T_SMALL, V, True) for model in ("oren_nayar", "cook_torrance", "ward_aniso")]
+    cases += [(model, 517, v, False) for model in ("cook_torrance", "ward_aniso") for v in NE_ODD_VIEWS]
     saved = dict(k6.LAUNCHES)
     out = {}
     for model, t, v, edges in cases:
         ang, y, w, prm = make_ne_case(rng, model, t, v, edges)
+        m = k0.SHADING_KERNELS[model].n_params
         name = f"{model}/T={t}/V={v}" + ("/edges" if edges else "")
         out[name] = {}
         for mode in NE_MODES:
-            for weights in (w, None):
-                got = k6.ne_rows_cuda(model, mode, ang, y, weights, prm)
-                torch.cuda.synchronize()
-                ref = k6.ne_rows_plain(model, mode, ang, y, weights, prm)
-                check(got.shape == ref.shape, f"{name}: {mode} rows {tuple(got.shape)}")
-                share = float(same(got, ref).double().mean())
-                err = float(torch.nan_to_num(got - ref).abs().max())
-                errs.append(err)
-                key = mode + ("/w" if weights is not None else "")
-                out[name][key] = dict(share=share, max_abs_err=err,
-                                      nan_share=float(torch.isnan(got).double().mean()))
-                check(share == 1.0, f"{name}: K6 {key} and its plain version differ ({share})")
-                del got, ref
-        log(f"K6 parity {name}: " + " ".join(f"{k} {r['share']:.6f}" for k, r in out[name].items()))
+            for layout in ne_layouts("ne", m, mode, v):
+                for weights in (w, None):
+                    with at_layout(layout):
+                        got = k6.ne_rows_cuda(model, mode, ang, y, weights, prm)
+                        torch.cuda.synchronize()
+                        ref = k6.ne_rows_plain(model, mode, ang, y, weights, prm)
+                    check(got.shape == ref.shape, f"{name}: {mode} rows {tuple(got.shape)}")
+                    share = float(same(got, ref).double().mean())
+                    err = float(torch.nan_to_num(got - ref).abs().max())
+                    errs.append(err)
+                    key = mode + ("/w" if weights is not None else "") + "@" + layout_key(layout)
+                    out[name][key] = dict(share=share, max_abs_err=err,
+                                          nan_share=float(torch.isnan(got).double().mean()))
+                    check(share == 1.0, f"{name}: K6 {key} and its plain version differ ({share})")
+                    del got, ref
+        chosen = {mode: layout_key(k6.ne_layout("ne", m, mode, v)) for mode in NE_MODES}
+        out[name]["chosen"] = chosen
+        log(f"K6 parity {name}: {len(out[name]) - 1} comparisons equal, chosen {chosen}")
     k6.LAUNCHES.update(saved)
     return out
 
@@ -1627,39 +1659,50 @@ def phase_joint_ne_parity(errs: list[float]) -> dict:
     """K7 against ``joint_ne_rows_plain`` on the four base lobes, three modes,
     a shared (T, V) weight and a per-channel one with a zeroed column, at
     bench.py::_joint_mrays's batch (roughness ≥ 0.3, offsets within ±0.3,
-    random targets) and at an odd size. The bar is equality."""
+    random targets) and at an odd size, at ``ne_layout``'s pick and every
+    candidate of ``NE_LAYOUTS`` the kernel takes; then cook_torrance at 517
+    texels and each of ``NE_ODD_VIEWS``. The bar is equality, and ``full``
+    keeps its 12 all-zero JᵀJ rows."""
     rng = np.random.default_rng(62)
     saved = dict(k6.LAUNCHES)
     out = {}
-    for base in k6.JOINT_MODELS:
-        for t, v in ((T_JOINT_BATCH, V), (517, 37)):
-            with torch.no_grad():
-                geom = shading_geometry(*synthetic_scene(rng, t, v, bench=True))
-            p_rows = joint_params(rng, t, base, 0.3).T.contiguous()
-            target = torch.tensor(rng.uniform(0.0, 1.0, (t, v, 3)), dtype=torch.float32, device=DEVICE)
-            w3 = torch.tensor(rng.uniform(0.2, 1.0, (t, v, 3)), dtype=torch.float32, device=DEVICE)
+    cases = [(base, t, v) for base in k6.JOINT_MODELS for t, v in ((T_JOINT_BATCH, V), (517, 37))]
+    cases += [("cook_torrance", 517, v) for v in NE_ODD_VIEWS if v != 37]
+    for base, t, v in cases:
+        with torch.no_grad():
+            geom = shading_geometry(*synthetic_scene(rng, t, v, bench=True))
+        p_rows = joint_params(rng, t, base, 0.3).T.contiguous()
+        target = torch.tensor(rng.uniform(0.0, 1.0, (t, v, 3)), dtype=torch.float32, device=DEVICE)
+        w3 = torch.tensor(rng.uniform(0.2, 1.0, (t, v, 3)), dtype=torch.float32, device=DEVICE)
+        if v > 2:                     # a zeroed column, not a zeroed channel
             w3[:, 2, 1] = 0.0
-            name = f"{base}/T={t}/V={v}"
-            out[name] = {}
-            for kind, weights in (("per_channel_w", w3), ("shared_w", w3[..., 0].contiguous())):
-                lv, y, w, frame = k6._joint_prep(geom, target, weights)
-                for mode in NE_MODES:
-                    got = k6.joint_ne_rows_cuda(base, mode, lv, y, w, p_rows, frame)
-                    torch.cuda.synchronize()
-                    ref = k6.joint_ne_rows_plain(base, mode, lv, y, w, p_rows, frame)
+        name = f"{base}/T={t}/V={v}"
+        out[name] = {}
+        kinds = (("per_channel_w", w3), ("shared_w", w3[..., 0].contiguous()))
+        for kind, weights in kinds[:1] if v > 100 else kinds:
+            lv, y, w, frame = k6._joint_prep(geom, target, weights)
+            for mode in NE_MODES:
+                for layout in ne_layouts("joint_ne", 9, mode, v):
+                    with at_layout(layout):
+                        got = k6.joint_ne_rows_cuda(base, mode, lv, y, w, p_rows, frame)
+                        torch.cuda.synchronize()
+                        ref = k6.joint_ne_rows_plain(base, mode, lv, y, w, p_rows, frame)
                     check(got.shape == ref.shape == (k6.ne_rows_count(9, mode), t),
                           f"{name}: {mode} rows {tuple(got.shape)}")
                     share = float(same(got, ref).double().mean())
                     err = float(torch.nan_to_num(got - ref).abs().max())
                     errs.append(err)
-                    out[name][f"{mode}/{kind}"] = dict(share=share, max_abs_err=err)
-                    check(torch.isfinite(got).all(), f"{name}: non-finite K7 rows ({mode})")
-                    check(share == 1.0, f"{name}: K7 {mode}/{kind} and its plain version differ ({share})")
+                    key = f"{mode}/{kind}@{layout_key(layout)}"
+                    out[name][key] = dict(share=share, max_abs_err=err)
+                    check(torch.isfinite(got).all(), f"{name}: non-finite K7 rows ({key})")
+                    check(share == 1.0, f"{name}: K7 {key} and its plain version differ ({share})")
                     if mode == "full":
                         zero_rows = int((got[1:46] == 0).all(1).sum())
-                        check(zero_rows == 12, f"{name}: {zero_rows} all-zero JᵀJ rows, expected 12")
+                        check(zero_rows == 12, f"{name}: {zero_rows} all-zero JᵀJ rows ({key}), expected 12")
                     del got, ref
-            log(f"K7 parity {name}: " + " ".join(f"{k} {r['share']:.6f}" for k, r in out[name].items()))
+        chosen = {mode: layout_key(k6.ne_layout("joint_ne", 9, mode, v)) for mode in NE_MODES}
+        out[name]["chosen"] = chosen
+        log(f"K7 parity {name}: {len(out[name]) - 1} comparisons equal, chosen {chosen}")
     k6.LAUNCHES.update(saved)
     return out
 
@@ -2121,48 +2164,120 @@ def phase_joint_closed_loop() -> dict:
     return out
 
 
-def phase_ne_timing(joint_inputs) -> dict:
+def ne_timed(call, kernel: str, model: str, mode: str, layout, weighted: bool = True) -> dict:
+    """One K6 or K7 call's time at ``layout`` (CUDA events, 20 back-to-back
+    launches, median of 3) with that instantiation's occupancy (the CUDA
+    runtime's blocks an SM, registers, local bytes)."""
+    with at_layout(layout):
+        ms = cuda_ms(call, reps=20)
+    occ = k6.occupancy(kernel, model, mode, layout, weighted)
+    return dict(ms=ms, layout=layout_key(layout), warps_per_sm=occ["warps_per_sm"],
+                registers=occ["registers"], local_bytes=occ["local_bytes"],
+                threads_per_block=occ["threads_per_block"])
+
+
+def halve_double(x: torch.Tensor, t: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x`` with its last (texel) axis of ``t`` cut to the first half, and
+    repeated twice."""
+    return x[..., :t // 2].contiguous(), torch.cat([x, x], -1)
+
+
+def ne_kernel_timing() -> dict:
     """K6 and K7 per launch and mode (CUDA events; 20 back-to-back launches,
-    median of 3 runs) with their bounds, the plain versions in ``full`` mode:
-    K6 on the shading batch (cook_torrance, 1048576 × 16, with and without
-    weights) and on the routed fit's shape (65536 × 384, weighted, as
-    ``fit_texels`` calls it); K7 on bench.py::_joint_mrays's batch and on the
-    main path's shape. Then one warm joint fit split into K7, the rest of the
-    device time and idle time, with the launches a pass outside K7."""
+    median of 3 runs) with their bounds and occupancy at ``ne_layout``'s
+    pick, the plain versions in ``full`` mode at 16 views: K6 on the
+    shading batch (cook_torrance, 1048576 × 16, with and without weights)
+    and on the routed fit's shape (65536 × 384, weighted, as ``fit_texels``
+    calls it); K7 on bench.py::_joint_mrays's batch (262144 × 16), on the
+    main path's shape (131072 × 16) and past K5's staging (65536 × 384, the
+    shape where ``ne_layout`` splits it). Beside them: each mode at every
+    split of ``NE_LAYOUTS`` the kernel takes (``layouts``), and ``full`` and
+    ``chi2`` with T halved and doubled at one thread a texel and at the pick
+    (``texels_scaled``: the wave and tail test)."""
     rng = np.random.default_rng(66)
     saved = dict(k6.LAUNCHES)
     res: dict = {"k6": {}, "k7": {}}
     model = "cook_torrance"
+    m = k0.SHADING_KERNELS[model].n_params
     for key, t, v in (("shading_batch", T_SHADE, V), ("routed_fit", T_CHUNKED, V_CHUNKED)):
         ang, y, w, prm = make_ne_case(rng, model, t, v)
-        res["k6"][key] = dict(model=model, texels=t, views=v)
+        out = res["k6"][key] = dict(model=model, texels=t, views=v, layouts={}, texels_scaled={})
         for weights, tag in ((w, "weighted"), (None, "unweighted")):
             for mode in NE_MODES:
-                ms = cuda_ms(lambda: k6.ne_rows_cuda(model, mode, ang, y, weights, prm), reps=20)
-                res["k6"][key][f"{mode}/{tag}"] = dict(
-                    ms=ms, **bound_of(ne_bytes(model, t, v, mode, weights is not None),
-                                      ne_operations(model, t, v, mode, weights is not None)))
-        res["k6"][key]["full/weighted"]["plain_ms"] = cuda_ms(
+                call = lambda: k6.ne_rows_cuda(model, mode, ang, y, weights, prm)  # noqa: E731
+                chosen = k6.ne_layout("ne", m, mode, v)
+                out[f"{mode}/{tag}"] = dict(
+                    **ne_timed(call, "ne", model, mode, chosen, weights is not None),
+                    **bound_of(ne_bytes(model, t, v, mode, weights is not None),
+                               ne_operations(model, t, v, mode, weights is not None)))
+                out[f"{mode}/{tag}"]["share_of_bound"] = (out[f"{mode}/{tag}"]["bound_ms"]
+                                                          / out[f"{mode}/{tag}"]["ms"])
+                out["layouts"][f"{mode}/{tag}"] = {
+                    layout_key(lay): ne_timed(call, "ne", model, mode, lay, weights is not None)
+                    for lay in NE_LAYOUTS if k6.layout_fits(m, mode, lay)}
+        out["full/weighted"]["plain_ms"] = cuda_ms(
             lambda: k6.ne_rows_plain(model, "full", ang, y, w, prm), reps=1)
-        log(f"K6 timing {key}: {res['k6'][key]}")
+        scaled = [halve_double(x, t) for x in (ang, y, w, prm)]
+        for i, tag in enumerate(("half", "double")):
+            a2, y2, w2, p2 = (pair[i] for pair in scaled)
+            t2 = y2.shape[1]
+            for mode in ("chi2", "full"):
+                call = lambda: k6.ne_rows_cuda(model, mode, a2, y2, w2, p2)  # noqa: E731
+                for lay in {k6.ONE_THREAD, k6.ne_layout("ne", m, mode, v)}:
+                    out["texels_scaled"][f"{mode}/{tag}@{layout_key(lay)}"] = dict(
+                        texels=t2, ms=ne_timed(call, "ne", model, mode, lay)["ms"],
+                        bound_ms=bound_of(ne_bytes(model, t2, v, mode, True),
+                                          ne_operations(model, t2, v, mode, True))["bound_ms"])
+        del scaled, a2, y2, w2, p2
+        log(f"K6 timing {key}: " + json.dumps({k: x for k, x in out.items() if k != "layouts"}))
+        log(f"K6 layouts {key}: " + json.dumps({k: {lk: round(x["ms"], 4) for lk, x in row.items()}
+                                                for k, row in out["layouts"].items()}))
         del ang, y, w, prm
     base = "cook_torrance"
-    for key, t in (("joint_batch", T_JOINT_BATCH), ("main_path", T_JOINT)):
+    for key, t, v in (("joint_batch", T_JOINT_BATCH, V), ("main_path", T_JOINT, V),
+                      ("long_views", T_CHUNKED, V_CHUNKED)):
         with torch.no_grad():
-            geom = shading_geometry(*synthetic_scene(rng, t, V, bench=True))
+            geom = shading_geometry(*synthetic_scene(rng, t, v, bench=True))
         p_rows = joint_params(rng, t, base, 0.3).T.contiguous()
-        target = torch.tensor(rng.uniform(0.0, 1.0, (t, V, 3)), dtype=torch.float32, device=DEVICE)
+        target = torch.tensor(rng.uniform(0.0, 1.0, (t, v, 3)), dtype=torch.float32, device=DEVICE)
         lv, y, w, frame = k6._joint_prep(geom, target, None)
-        res["k7"][key] = dict(base_model=base, texels=t, views=V)
+        out = res["k7"][key] = dict(base_model=base, texels=t, views=v, layouts={}, texels_scaled={})
         for mode in NE_MODES:
-            ms = cuda_ms(lambda: k6.joint_ne_rows_cuda(base, mode, lv, y, w, p_rows, frame), reps=20)
-            res["k7"][key][mode] = dict(ms=ms, **bound_of(joint_ne_bytes(t, V, mode),
-                                                          joint_ne_operations(base, t, V, mode)))
-        res["k7"][key]["full"]["plain_ms"] = cuda_ms(
-            lambda: k6.joint_ne_rows_plain(base, "full", lv, y, w, p_rows, frame), reps=1)
-        log(f"K7 timing {key}: {res['k7'][key]}")
+            call = lambda: k6.joint_ne_rows_cuda(base, mode, lv, y, w, p_rows, frame)  # noqa: E731
+            chosen = k6.ne_layout("joint_ne", 9, mode, v)
+            out[mode] = dict(**ne_timed(call, "joint_ne", base, mode, chosen),
+                             **bound_of(joint_ne_bytes(t, v, mode), joint_ne_operations(base, t, v, mode)))
+            out[mode]["share_of_bound"] = out[mode]["bound_ms"] / out[mode]["ms"]
+            out["layouts"][mode] = {layout_key(lay): ne_timed(call, "joint_ne", base, mode, lay)
+                                    for lay in NE_LAYOUTS if k6.layout_fits(9, mode, lay)}
+        if v == V:
+            out["full"]["plain_ms"] = cuda_ms(
+                lambda: k6.joint_ne_rows_plain(base, "full", lv, y, w, p_rows, frame), reps=1)
+        scaled = [halve_double(x, t) for x in (lv, y, w, p_rows, frame)]
+        for i, tag in enumerate(("half", "double")):
+            l2, y2, w2, p2, f2 = (pair[i] for pair in scaled)
+            t2 = y2.shape[-1]
+            for mode in ("chi2", "full"):
+                call = lambda: k6.joint_ne_rows_cuda(base, mode, l2, y2, w2, p2, f2)  # noqa: E731
+                for lay in {k6.ONE_THREAD, k6.ne_layout("joint_ne", 9, mode, v)}:
+                    out["texels_scaled"][f"{mode}/{tag}@{layout_key(lay)}"] = dict(
+                        texels=t2, ms=ne_timed(call, "joint_ne", base, mode, lay)["ms"],
+                        bound_ms=bound_of(joint_ne_bytes(t2, v, mode),
+                                          joint_ne_operations(base, t2, v, mode))["bound_ms"])
+        del scaled, l2, y2, w2, p2, f2
+        log(f"K7 timing {key}: " + json.dumps({k: x for k, x in out.items() if k != "layouts"}))
+        log(f"K7 layouts {key}: " + json.dumps({k: {lk: round(x["ms"], 4) for lk, x in row.items()}
+                                                for k, row in out["layouts"].items()}))
         del geom, lv, y, w, frame
+    k6.LAUNCHES.update(saved)
+    return res
 
+
+def phase_ne_timing(joint_inputs) -> dict:
+    """``ne_kernel_timing``, then one warm joint fit split into K7, the rest
+    of the device time and idle time, with the launches a pass outside K7."""
+    res = ne_kernel_timing()
+    saved = dict(k6.LAUNCHES)
     problem, report = joint_inputs
     for name, kw in (("grid_init", dict()), ("channel_report", dict(channel_report=report))):
         syncs = k6.LOOP_SYNCS
@@ -2573,15 +2688,18 @@ def ptxas_numbers() -> dict:
 
 def ptxas_by_mode(entries: list[dict]) -> dict:
     """K6's and K7's instantiations by "lobe id/mode[/w]": registers a thread,
-    and the largest stack frame and spill of any of them."""
+    the spill bytes (stores and loads) of those that spill, and the largest
+    stack frame and spill of any of them."""
     import re
 
-    regs = {}
+    regs, spills = {}, {}
     for e in entries:
         m = re.search(r"kernelILi(\d+)ELi(\d)E(?:Lb(\d)E)?", e["entry"])
         key = f"{m.group(1)}/{NE_MODES[int(m.group(2))]}" + ("/w" if m.group(3) == "1" else "")
         regs[key] = e["registers"]
-    return dict(registers=regs, registers_max=max(regs.values()),
+        if e["spill_store_bytes"] + e["spill_load_bytes"]:
+            spills[key] = e["spill_store_bytes"] + e["spill_load_bytes"]
+    return dict(registers=regs, spills=spills, registers_max=max(regs.values()),
                 stack_bytes_max=max(e["stack_bytes"] for e in entries),
                 spill_bytes_max=max(e["spill_store_bytes"] + e["spill_load_bytes"] for e in entries))
 
@@ -2593,7 +2711,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
     _build.build_all()
-    log(f"built {list(_build.SOURCES)} in {time.perf_counter() - t_start:.1f} s")
+    build_s = time.perf_counter() - t_start
+    log(f"built {list(_build.SOURCES)} in {build_s:.1f} s")
     card = card_line()
     name = torch.cuda.get_device_name(0)
     log(f"card: {card}")
@@ -2711,7 +2830,7 @@ def main() -> int:
             "kernel": "K6 normal equations (csrc/ne.cu), K7 joint normal equations (csrc/joint_ne.cu)",
             "k6_parity": ne_parity, "k7_parity": joint_ne_parity, "autograd": ne_autograd,
             "chunked_tier": chunked_tier, "main_path": joint_main, "closed_loop": joint_loop,
-            "timing": ne_timing,
+            "timing": ne_timing, "build_s": dict(_build.BUILD_SECONDS, all_sources=build_s),
             "ptxas": {name: ptxas_by_mode(ptxas_numbers()[name]) for name in ("ne", "joint_ne")},
         },
         "numbers_varpro_nd": {
@@ -2805,6 +2924,8 @@ def main() -> int:
         "bound_ms": k6_t["bound_ms"],
         "bound_by": k6_t["bound_by"],
         "library_ms": None,
+        "layout": k6_t["layout"],
+        "warps_per_sm": k6_t["warps_per_sm"],
     }, {
         # full mode on the joint main path's shape (cook_torrance, 131072 x 16 x 3)
         "name": "joint_ne_k7",
@@ -2818,6 +2939,8 @@ def main() -> int:
         "bound_ms": k7_t["bound_ms"],
         "bound_by": k7_t["bound_by"],
         "library_ms": None,
+        "layout": k7_t["layout"],
+        "warps_per_sm": k7_t["warps_per_sm"],
     }, {
         # round 0 of the timber-aniso VarPro fit (ward_aniso, 393216 lanes, grid, k=16)
         "name": "varpro_nd_k8",
