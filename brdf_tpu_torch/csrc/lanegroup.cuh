@@ -1,7 +1,7 @@
 // Lane groups and warp splits: one work item (a texel) taken by several
-// threads, each holding a slice of the item's views. K8 (varpro_nd.cu) and K5
-// (lm.cu) solve a texel with a lane group; K6 (ne.cu) and K7 (joint_ne.cu)
-// sum a texel's normal equations over a warp split.
+// threads, each holding a slice of the item's views. K1 (varpro.cu), K8
+// (varpro_nd.cu) and K5 (lm.cu) solve a texel with a lane group; K6 (ne.cu)
+// and K7 (joint_ne.cu) sum a texel's normal equations over a warp split.
 //
 // A lane group: S is a power of two that divides 32, so a group never
 // straddles a warp; lane l of a group holds views l, l + S, l + 2S, … ("slot"

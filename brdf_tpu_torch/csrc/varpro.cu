@@ -1,4 +1,6 @@
-// Fused VarPro solve for the separable lobes, one thread per texel (kernel K1).
+// Fused VarPro solve for the separable m=3 lobes (kernel K1): one texel a
+// group of S lanes of a warp, each lane holding VPL of the texel's views and
+// their per-view state in registers.
 //
 // Replaces brdf_tpu/ops/varpro_pallas.py::_varpro_kernel (launched there by
 // varpro_fit_pallas). It computes what that kernel computes: an in-kernel
@@ -7,20 +9,47 @@
 // (roughness) with Kaufman's projected curvature and a trust-clipped
 // accept-if-better step; a caller start (sig0) skips the grid.
 //
-// What bounds it on an H100: not bytes. Each texel reads (A+2)·V floats once
-// (≈34 MB at T=131072, V=16) but evaluates its lobe (grid + 1 + iters) times
-// per view, each evaluation a handful of expf/logf/sqrtf and divides, so it is
-// bound by FP32 and special-function issue. The design keeps every input in
-// device memory exactly once: a block stages its texels' angles, weights and
-// weighted targets in shared memory (layout [channel][view][texel], so the 32
-// threads of a warp touch 32 consecutive words: coalesced loads, no bank
-// conflicts), and the whole solve then runs from shared memory and registers
-// with no further device-memory traffic until the 8 output rows. Each thread
-// reads only its own texel's column, so the kernel needs no barrier.
+// What bounds it on an H100: issue, not bytes. A texel reads (A+2)·V floats
+// once (A = 2 or 3 angle channels) and evaluates its lobe (grid + 1 + iters)
+// times per view: for cook_torrance 8 IEEE divides and 2 square roots a view
+// and evaluation, for the Phong lobes an expf, whose rounding the plain
+// version fixes; between the passes over the views, some 80 operations of
+// scalar solve a texel with divides of their own.
 //
-// χ² is formed from residuals in a second pass over the views (the Gram
-// identity's f32 cancellation floors χ² and breaks the accept test); the
-// first pass keeps w·b and w·∂b in shared memory for it.
+// What held the first design back: one thread a texel, with a block's views
+// staged in shared memory ((A + 5)·V floats a texel, 57–66 KB for a block of
+// 128 texels at V=16), so 12–16 warps an SM, each thread one dependent chain
+// of (grid + 1 + iters) evaluations with the view state read back from
+// shared memory in each, at 10–11% of the operation bound.
+//
+// This design (csrc/lanegroup.cuh, as K8 and K5): a texel is solved by S
+// lanes; lane l holds views l, l + S, … (VPL slots, a template parameter, so
+// the state arrays stay in registers under #pragma unroll). A lane loads its
+// views' angles, w and y·w once from device memory and keeps them beside a·w
+// and the last evaluation's b·w and ∂b·w: (A + 5)·VPL floats, at most
+// kLaneStateFloats (for blinn_phong, view_part keeps what a view gives alone
+// in place of its angles). There is no shared memory. A lane's VPL lobe
+// evaluations are independent, so they overlap. Every view sum is a lane's
+// partial left to right, then log2 S butterfly rounds: all S lanes hold the
+// same bits, run the scalar solve (bvls2, the curvature, the step, the
+// accept, the trust radius) replicated in lockstep, and lane 0 writes the 8
+// output rows. Lanes past T run on a clamped texel and only skip the write;
+// a slot past V runs on a clamped view and its terms are left out by select.
+// The work is fixed (grid + 1 + iters evaluations, no early exit), so no
+// texel is refilled. ops/varpro.py::lane_layout picks (S, VPL) from A and V,
+// for the wrapper and the plain version alike (at V=16: (2, 8) for the
+// two-channel lobes, (4, 4) for the three-channel ones); past 32 lanes of
+// kLaneStateFloats the wrapper raises. There is no fallback. Each copy of
+// the scalar solve costs issue slots, so the fewest lanes whose state fits
+// 20 warps an SM win.
+//
+// χ² is formed from residuals in a second pass over a lane's views (the Gram
+// identity's f32 cancellation floors χ² and breaks the accept test).
+//
+// Rounding follows lobes.cuh's rules (built with -fmad=false, reciprocals as
+// torch takes them, NaN-propagating clamps and maxima as torch.clamp), so the
+// kernel can be held against ops/varpro.py::varpro_rows_plain lane for lane:
+// its view sums follow the same lane order and tree.
 //
 // Interface: plain C, loaded with ctypes (brdf_tpu_torch/ops/_build.py). The
 // kernel runs on the caller's stream, never synchronises and allocates
@@ -29,12 +58,20 @@
 #include <math.h>
 
 #include "bvls2.cuh"
+#include "lanegroup.cuh"
 #include "lobes.cuh"
 
 namespace {
 
 constexpr int kMaxGrid = 16;
 constexpr float kTiny = 1e-30f;
+constexpr int kThreads = 128;          // a block: four warps, 128 / S texels
+constexpr int kLaneStateFloats = 64;   // view state a lane may hold (ops/varpro.py)
+// Views a lane holds while a group of up to 32 lanes can take the views, by
+// angle channels (index A): the twin of ops/varpro.py's
+// VIEWS_PER_LANE_BY_ANGLES, which picks the layouts; min_blocks reads it, and
+// tests/test_torch_varpro_layout.py holds the two equal.
+constexpr int kViewsPerLane[4] = {0, 0, 8, 4};
 
 struct GridArgs {
   float sig[kMaxGrid];  // grid values of σ (f32)
@@ -50,61 +87,116 @@ struct SolveArgs {
   int use_log, iters;
 };
 
-__device__ __forceinline__ float clipf(float x, float lo, float hi) {
-  // jnp.clip order (max, then min); NaN handling is not relied upon
-  return fminf(fmaxf(x, lo), hi);
+using brdf::bvls2;
+using brdf::clip_nan;
+using brdf::group_sum;
+using brdf::max_nan;
+
+// K1's lobe at (kd, ks) = (0, 1): b = I and ∂b/∂σ. For blinn_phong the
+// evaluation is split into what a view gives alone (ViewPart, computed once a
+// view and kept in the lane's registers in place of its angles: 0·max(cos_ln,
+// 0) and the log of the power's base) and what each shape point adds, which
+// takes a logf out of every evaluation. The split repeats lobes.cuh's
+// operations in their order, so b and ∂b carry the bits lobe_full<L>(ang, 0,
+// 1, σ) gives them (∂b may be a zero of the other sign where the mask is off:
+// added to a sum that starts at +0 it changes no bit). The other lobes keep
+// their angles and call lobe_full.
+template <int L>
+struct ViewPart {
+  float x[brdf::LobeTraits<L>::n_angles];
+};
+
+template <int L>
+__device__ __forceinline__ ViewPart<L> view_part(const float* ang) {
+  ViewPart<L> v;
+  if constexpr (L == brdf::LOBE_BLINN_PHONG) {
+    // 0·diff_b, and the log of the power's base, NaN where the mask is off
+    const bool m = (ang[0] > 0.0f) && (ang[1] > 0.0f);
+    v.x[0] = 0.0f * fmaxf(ang[0], 0.0f);
+    v.x[1] = m ? logf(fmaxf(ang[1], brdf::kEps)) : NAN;
+  } else {
+#pragma unroll
+    for (int a = 0; a < brdf::LobeTraits<L>::n_angles; ++a) v.x[a] = ang[a];
+  }
+  return v;
 }
 
 template <int L>
-__global__ void __launch_bounds__(128)
+__device__ __forceinline__ void shape_part(const ViewPart<L>& v, float sig, float& b,
+                                           float& db) {
+  if constexpr (L == brdf::LOBE_BLINN_PHONG) {
+    const bool m = v.x[1] == v.x[1];
+    const float pw = m ? expf(sig * v.x[1]) : 0.0f;
+    b = v.x[0] + pw;
+    db = m ? v.x[1] * pw : 0.0f;
+  } else {
+    const brdf::LobeOut<L> o = brdf::lobe_full<L>(v.x, 0.0f, 1.0f, sig);
+    b = o.i;
+    db = o.dp[2];
+  }
+}
+
+// the most views a lane holds: the view part (A floats), w, y·w, a·w, b·w and
+// ∂b·w a view
+template <int L>
+__host__ __device__ constexpr int max_vpl() {
+  return kLaneStateFloats / (brdf::LobeTraits<L>::n_angles + 5);
+}
+
+// the blocks an SM __launch_bounds__ asks for: 5 (20 warps, at most 102
+// registers a thread) up to the views a lane holds below 32 lanes a texel
+// (kViewsPerLane), else 4 (16 warps, 128 registers), where 102 would spill
+// the views' state
+template <int L, int VPL>
+__host__ __device__ constexpr int min_blocks() {
+  return VPL <= kViewsPerLane[brdf::LobeTraits<L>::n_angles] ? 5 : 4;
+}
+
+template <int L, int VPL>
+__global__ void __launch_bounds__(kThreads, (min_blocks<L, VPL>()))
 varpro_kernel(const float* __restrict__ ang,   // (A, V, T)
               const float* __restrict__ y,     // (V, T)
               const float* __restrict__ w,     // (V, T)
               const float* __restrict__ sig0,  // (T,) caller σ start, or null
               float* __restrict__ out,         // (8, T)
-              int T, int V, GridArgs grid, SolveArgs s) {
+              int T, int V, int S, GridArgs grid, SolveArgs s) {
   constexpr int A = brdf::LobeTraits<L>::n_angles;
-  extern __shared__ float smem[];
-  const int tb = blockDim.x;
-  const int tid = threadIdx.x;
-  const long t = static_cast<long>(blockIdx.x) * tb + tid;
-  if (t >= T) return;  // ragged edge: masked, never written
+  static_assert(VPL >= 1 && VPL <= max_vpl<L>(), "a lane's view state fits its budget");
+  const brdf::LaneGroup lg = brdf::lane_group(S);
+  // ragged edge: lanes past T stay for the shuffles on the last texel, unwritten
+  const bool live = lg.item < T;
+  const long t = live ? lg.item : T - 1;
+  const long vt = static_cast<long>(V) * T;
 
-  // [channel][view][texel]; each thread owns one texel column
-  float* s_ang = smem;                 // A·V·tb
-  float* s_w = s_ang + A * V * tb;     // w
-  float* s_yw = s_w + V * tb;          // y·w
-  float* s_aw = s_yw + V * tb;         // a·w (σ-free diffuse basis)
-  float* s_bw = s_aw + V * tb;         // b·w of the last evaluation
-  float* s_dbw = s_bw + V * tb;        // ∂b/∂t·w of the last evaluation
-
-  float av[A];
-  float aa = 0.0f, ay = 0.0f;
-  for (int v = 0; v < V; ++v) {
-    const long g = static_cast<long>(v) * T + t;
-    const int sv = v * tb + tid;
-    for (int a = 0; a < A; ++a) {
-      av[a] = ang[static_cast<long>(a) * V * T + g];
-      s_ang[a * V * tb + sv] = av[a];
-    }
-    const float wv = w[g];
-    const float ywv = y[g] * wv;
+  // this lane's views k·S + lane; only the last slot can fall past V
+  ViewPart<L> vp[VPL];
+  float wv[VPL], yw[VPL], aw[VPL], bw[VPL], dbw[VPL];
+  bool in_v[VPL];
+  float a_sums[2] = {0.0f, 0.0f};  // Σ a·a, Σ a·y
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    const int v = k * S + lg.lane;
+    in_v[k] = v < V;
+    const long gi = static_cast<long>(in_v[k] ? v : V - 1) * T + t;
+    float av[A];
+#pragma unroll
+    for (int a = 0; a < A; ++a) av[a] = ang[a * vt + gi];
+    wv[k] = w[gi];
+    yw[k] = y[gi] * wv[k];
     // the diffuse basis is σ-independent for every separable lobe
-    const float aw = brdf::lobe_full<L>(av, 0.0f, 1.0f, grid.sig[0]).dp[0] * wv;
-    s_w[sv] = wv;
-    s_yw[sv] = ywv;
-    s_aw[sv] = aw;
-    aa += aw * aw;
-    ay += aw * ywv;
+    aw[k] = brdf::lobe_full<L>(av, 0.0f, 1.0f, grid.sig[0]).dp[0] * wv[k];
+    vp[k] = view_part<L>(av);
+    if (in_v[k]) {
+      a_sums[0] += aw[k] * aw[k];
+      a_sums[1] += aw[k] * yw[k];
+    }
   }
-
-  auto load_angles = [&](int v) {
-    for (int a = 0; a < A; ++a) av[a] = s_ang[a * V * tb + v * tb + tid];
-  };
+  group_sum(a_sums, S);
+  const float aa = a_sums[0], ay = a_sums[1];
 
   float best_t;
   if (sig0 != nullptr) {
-    const float s0 = clipf(sig0[t], s.p0_lo, s.p0_hi);
+    const float s0 = clip_nan(sig0[t], s.p0_lo, s.p0_hi);
     best_t = s.use_log ? logf(s0) : s0;
   } else {
     // grid init: the Gram-form cost only ranks the points
@@ -112,19 +204,23 @@ varpro_kernel(const float* __restrict__ ang,   // (A, V, T)
     float best_cost = INFINITY;
     for (int gi = 0; gi < grid.n; ++gi) {
       const float sig = grid.sig[gi];
-      float ab = 0.0f, bb = 0.0f, by = 0.0f;
-      for (int v = 0; v < V; ++v) {
-        load_angles(v);
-        const int sv = v * tb + tid;
-        const float bw = brdf::lobe_full<L>(av, 0.0f, 1.0f, sig).i * s_w[sv];
-        ab += s_aw[sv] * bw;
-        bb += bw * bw;
-        by += bw * s_yw[sv];
+      float b_sums[3] = {0.0f, 0.0f, 0.0f};  // Σ a·b, b·b, b·y
+#pragma unroll
+      for (int k = 0; k < VPL; ++k) {
+        float bk, dbk;
+        shape_part<L>(vp[k], sig, bk, dbk);
+        const float bwk = bk * wv[k];
+        if (in_v[k]) {
+          b_sums[0] += aw[k] * bwk;
+          b_sums[1] += bwk * bwk;
+          b_sums[2] += bwk * yw[k];
+        }
       }
+      group_sum(b_sums, S);
       float kd, ks;
-      brdf::bvls2(aa, ab, bb, ay, by, s.l0, s.u0, s.l1, s.u1, kd, ks);
-      const float cost = kd * kd * aa + ks * ks * bb + 2.0f * kd * ks * ab -
-                         2.0f * (kd * ay + ks * by);
+      bvls2(aa, b_sums[0], b_sums[1], ay, b_sums[2], s.l0, s.u0, s.l1, s.u1, kd, ks);
+      const float cost = kd * kd * aa + ks * ks * b_sums[1] + 2.0f * kd * ks * b_sums[0] -
+                         2.0f * (kd * ay + ks * b_sums[2]);
       if (cost < best_cost) {
         best_t = grid.t[gi];
         best_cost = cost;
@@ -132,45 +228,50 @@ varpro_kernel(const float* __restrict__ ang,   // (A, V, T)
     }
   }
 
-  // profiled objective, gradient and projected curvature at coordinate tv
+  // profiled χ², gradient, projected curvature, kd and ks at coordinate tv
   auto eval_at = [&](float tv, float& chi2, float& g, float& h, float& kd, float& ks) {
     const float sig = s.use_log ? expf(tv) : tv;
-    float ab = 0.0f, bb = 0.0f, by = 0.0f, a_db = 0.0f, b_db = 0.0f, dd = 0.0f;
-    for (int v = 0; v < V; ++v) {
-      load_angles(v);
-      const int sv = v * tb + tid;
-      const brdf::LobeOut<L> o = brdf::lobe_full<L>(av, 0.0f, 1.0f, sig);
-      const float db_t = s.use_log ? o.dp[2] * sig : o.dp[2];
-      const float wv = s_w[sv];
-      const float aw = s_aw[sv];
-      const float bw = o.i * wv;
-      const float dbw = db_t * wv;
-      s_bw[sv] = bw;
-      s_dbw[sv] = dbw;
-      ab += aw * bw;
-      bb += bw * bw;
-      by += bw * s_yw[sv];
-      a_db += aw * dbw;
-      b_db += bw * dbw;
-      dd += dbw * dbw;
+    // pass 1: the lobe; Σ a·b, b·b, b·y, a·∂b, b·∂b, ∂b·∂b
+    float b_sums[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      float bk, dbk;
+      shape_part<L>(vp[k], sig, bk, dbk);
+      const float db_t = s.use_log ? dbk * sig : dbk;
+      bw[k] = bk * wv[k];
+      dbw[k] = db_t * wv[k];
+      if (in_v[k]) {
+        b_sums[0] += aw[k] * bw[k];
+        b_sums[1] += bw[k] * bw[k];
+        b_sums[2] += bw[k] * yw[k];
+        b_sums[3] += aw[k] * dbw[k];
+        b_sums[4] += bw[k] * dbw[k];
+        b_sums[5] += dbw[k] * dbw[k];
+      }
     }
-    brdf::bvls2(aa, ab, bb, ay, by, s.l0, s.u0, s.l1, s.u1, kd, ks);
-    float c2 = 0.0f, gs = 0.0f;
-    for (int v = 0; v < V; ++v) {
-      const int sv = v * tb + tid;
-      const float rw = s_yw[sv] - kd * s_aw[sv] - ks * s_bw[sv];
-      c2 += rw * rw;
-      gs += rw * s_dbw[sv];
+    group_sum(b_sums, S);
+    const float ab = b_sums[0], bb = b_sums[1], by = b_sums[2];
+    const float a_db = b_sums[3], b_db = b_sums[4], dd = b_sums[5];
+    bvls2(aa, ab, bb, ay, by, s.l0, s.u0, s.l1, s.u1, kd, ks);
+    float r_sums[2] = {0.0f, 0.0f};  // pass 2: χ² and Σ r·∂b from residuals
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const float rw = yw[k] - kd * aw[k] - ks * bw[k];
+      if (in_v[k]) {
+        r_sums[0] += rw * rw;
+        r_sums[1] += rw * dbw[k];
+      }
     }
-    chi2 = c2;
-    g = -2.0f * ks * gs;
+    group_sum(r_sums, S);
+    chi2 = r_sums[0];
+    g = -2.0f * ks * r_sums[1];
     const float det = aa * bb - ab * ab;
     const bool det_ok = det > kTiny;
     const float det_s = det_ok ? det : 1.0f;
     const float x1 = det_ok ? (bb * a_db - ab * b_db) / det_s : 0.0f;
     const float x2 = det_ok ? (aa * b_db - ab * a_db) / det_s : 0.0f;
     const float proj = dd - x1 * a_db - x2 * b_db;
-    h = 2.0f * ks * ks * fmaxf(proj, 0.0f);
+    h = 2.0f * ks * ks * max_nan(proj, 0.0f);
   };
 
   float tc = best_t, chi2, g, h, kd, ks;
@@ -178,13 +279,18 @@ varpro_kernel(const float* __restrict__ ang,   // (A, V, T)
   float trust = s.trust0;
   float n_acc = 0.0f;
   for (int it = 0; it < s.iters; ++it) {
-    const float step = clipf(-g / fmaxf(h, kTiny), -trust, trust);
-    const float t_new = clipf(tc + step, s.s_lo, s.s_hi);
+    const float step = clip_nan(-g / max_nan(h, kTiny), -trust, trust);
+    const float t_new = clip_nan(tc + step, s.s_lo, s.s_hi);
     float chi2_n, g_n, h_n, kd_n, ks_n;
     eval_at(t_new, chi2_n, g_n, h_n, kd_n, ks_n);
     const bool ok = (chi2_n < chi2) && isfinite(chi2_n);
     if (ok) {
-      tc = t_new; chi2 = chi2_n; g = g_n; h = h_n; kd = kd_n; ks = ks_n;
+      tc = t_new;
+      chi2 = chi2_n;
+      g = g_n;
+      h = h_n;
+      kd = kd_n;
+      ks = ks_n;
       trust = fminf(trust * 2.0f, s.span);
       n_acc += 1.0f;
     } else {
@@ -192,43 +298,62 @@ varpro_kernel(const float* __restrict__ ang,   // (A, V, T)
     }
   }
 
+  if (!live || lg.lane != 0) return;
   out[t] = kd;
   out[T + t] = ks;
   out[2L * T + t] = s.use_log ? expf(tc) : tc;
-  out[3L * T + t] = chi2 < 0.0f ? 0.0f : chi2;
+  out[3L * T + t] = max_nan(chi2, 0.0f);
   out[4L * T + t] = n_acc;
   out[5L * T + t] = trust < s.conv_tol ? 2.0f : 3.0f;
   out[6L * T + t] = fabsf(g);
   out[7L * T + t] = 0.0f;
 }
 
-template <int L>
-int launch(const float* ang, const float* y, const float* w, const float* sig0, float* out,
-           int T, int V, int block_t, int smem_bytes, const GridArgs& grid,
-           const SolveArgs& s, cudaStream_t stream) {
-  constexpr int A = brdf::LobeTraits<L>::n_angles;
-  if (smem_bytes != (A + 5) * V * block_t * static_cast<int>(sizeof(float)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      varpro_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (T + block_t - 1) / block_t;
-  varpro_kernel<L><<<blocks, block_t, smem_bytes, stream>>>(ang, y, w, sig0, out, T, V,
-                                                            grid, s);
-  return static_cast<int>(cudaGetLastError());
+using KernelFn = void (*)(const float*, const float*, const float*, const float*, float*, int,
+                          int, int, GridArgs, SolveArgs);
+
+// the instantiation for VPL = vpl views a lane, or null past the lobe's budget
+template <int L, int VPL = 1>
+KernelFn kernel_for(int vpl) {
+  if constexpr (VPL > max_vpl<L>()) {
+    return nullptr;
+  } else {
+    if (vpl == VPL) return varpro_kernel<L, VPL>;
+    return kernel_for<L, VPL + 1>(vpl);
+  }
+}
+
+KernelFn pick_kernel(int lobe, int vpl) {
+  switch (lobe) {
+    case brdf::LOBE_BLINN_PHONG:
+      return kernel_for<brdf::LOBE_BLINN_PHONG>(vpl);
+    case brdf::LOBE_PHONG:
+      return kernel_for<brdf::LOBE_PHONG>(vpl);
+    case brdf::LOBE_COOK_TORRANCE:
+      return kernel_for<brdf::LOBE_COOK_TORRANCE>(vpl);
+    case brdf::LOBE_WARD:
+      return kernel_for<brdf::LOBE_WARD>(vpl);
+    default:
+      return nullptr;
+  }
 }
 
 }  // namespace
 
 extern "C" int brdf_varpro_fit(int lobe, const float* ang, const float* y, const float* w,
-                               const float* sig0, float* out, int T, int V, int block_t,
-                               int smem_bytes, const float* grid_sig, const float* grid_t,
-                               int n_grid, float l0, float u0, float l1, float u1,
-                               int use_log, float s_lo, float s_hi, float p0_lo,
-                               float p0_hi, float span, float trust0, float conv_tol,
-                               int iters, void* stream) {
-  if (n_grid < 1 || n_grid > kMaxGrid || block_t < 32 || block_t > 128 || block_t % 32)
+                               const float* sig0, float* out, int T, int V, int lanes, int vpl,
+                               const float* grid_sig, const float* grid_t, int n_grid, float l0,
+                               float u0, float l1, float u1, int use_log, float s_lo,
+                               float s_hi, float p0_lo, float p0_hi, float span, float trust0,
+                               float conv_tol, int iters, void* stream) {
+  // lanes: a power of two dividing 32; vpl: ceil(V / lanes), so every lane
+  // holds a view in each slot but the last
+  const bool lanes_ok = lanes >= 1 && lanes <= 32 && (lanes & (lanes - 1)) == 0;
+  if (n_grid < 1 || n_grid > kMaxGrid || T < 1 || V < 1 || !lanes_ok || vpl < 1 ||
+      static_cast<long>(vpl) * lanes < V || static_cast<long>(vpl - 1) * lanes >= V)
     return static_cast<int>(cudaErrorInvalidValue);
+  const KernelFn kernel = pick_kernel(lobe, vpl);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   GridArgs grid;
   for (int i = 0; i < kMaxGrid; ++i) {
     grid.sig[i] = i < n_grid ? grid_sig[i] : 0.0f;
@@ -237,21 +362,27 @@ extern "C" int brdf_varpro_fit(int lobe, const float* ang, const float* y, const
   grid.n = n_grid;
   const SolveArgs s{l0, u0, l1, u1, s_lo, s_hi, p0_lo, p0_hi,
                     span, trust0, conv_tol, use_log, iters};
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (lobe) {
-    case brdf::LOBE_BLINN_PHONG:
-      return launch<brdf::LOBE_BLINN_PHONG>(ang, y, w, sig0, out, T, V, block_t, smem_bytes,
-                                            grid, s, st);
-    case brdf::LOBE_PHONG:
-      return launch<brdf::LOBE_PHONG>(ang, y, w, sig0, out, T, V, block_t, smem_bytes, grid,
-                                      s, st);
-    case brdf::LOBE_COOK_TORRANCE:
-      return launch<brdf::LOBE_COOK_TORRANCE>(ang, y, w, sig0, out, T, V, block_t,
-                                              smem_bytes, grid, s, st);
-    case brdf::LOBE_WARD:
-      return launch<brdf::LOBE_WARD>(ang, y, w, sig0, out, T, V, block_t, smem_bytes, grid,
-                                     s, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const long threads = static_cast<long>(T) * lanes;
+  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(ang, y, w, sig0, out, T, V,
+                                                                     lanes, grid, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// What the launched instantiation gets on this card: out[0] resident blocks an
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at kThreads threads and no
+// shared memory), out[1] registers a thread, out[2] local memory bytes a
+// thread (stack and spills), out[3] threads a block.
+extern "C" int brdf_varpro_occupancy(int lobe, int vpl, int* out) {
+  const KernelFn kernel = pick_kernel(lobe, vpl);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = kThreads;
+  return 0;
 }

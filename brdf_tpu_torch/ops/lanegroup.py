@@ -1,10 +1,10 @@
 """The plain side of ``csrc/lanegroup.cuh``: how many lanes solve a texel,
 and the fixed-order sum over its views that such a group computes.
 
-K5 (``ops/lm.py``) and K8 (``ops/varpro_nd.py``) solve a texel with a group
-of S lanes of one warp, lane l holding views l, l + S, …; K6 and K7
-(``ops/ne.py``) split a texel's views the same way over the W warps of a
-block. Each thread adds its views left to right from 0, and the partials
+K1 (``ops/varpro.py``), K5 (``ops/lm.py``) and K8 (``ops/varpro_nd.py``)
+solve a texel with a group of S lanes of one warp, lane l holding views l,
+l + S, …; K6 and K7 (``ops/ne.py``) split a texel's views the same way over
+the W warps of a block. Each thread adds its views left to right from 0, and the partials
 combine as a pairwise tree (an XOR butterfly, or a fold in shared memory).
 Their plain versions sum every view quantity with :func:`group_sum`, which
 repeats that order, so that kernel and plain version agree bit for bit on

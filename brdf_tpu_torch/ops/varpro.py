@@ -20,6 +20,14 @@ falls back from one to the other.
 On the card K1 is bound by FP32 and special-function issue, not by bytes:
 each texel reads its inputs once and evaluates its lobe
 ``(grid + 1 + iters)`` times per view (see the note in ``csrc/varpro.cu``).
+
+K1 solves a texel with a group of S lanes, each holding VPL of its views
+(:func:`lane_layout`), and sums over views in that layout's fixed order
+(``ops/lanegroup.py::group_sum``): each lane's views left to right, then a
+pairwise tree over the lanes. The plain version sums in the same order, so
+the two agree bit for bit on the card; the Pallas kernel's ``jnp.sum``
+order is XLA's, and the tests hold the plain version to it at the solve's
+float32 chaos.
 """
 
 from __future__ import annotations
@@ -33,13 +41,27 @@ import torch
 
 from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles
 from brdf_tpu_torch.ops import _build
+from brdf_tpu_torch.ops.lanegroup import group_lanes, group_sum
 from brdf_tpu_torch.ops.shading import SHADING_KERNELS
 from brdf_tpu_torch.solver.init import default_shape_grid
 from brdf_tpu_torch.solver.varpro import _SEPARABLE, VarProResult, _bvls2, sigma_domain
 
 _TINY = 1e-30
-# Shared memory a block may use on Hopper (sm_90), opt-in dynamic maximum.
-SMEM_LIMIT = 232448
+# K1's block: four warps (csrc/varpro.cu kThreads)
+THREADS = 128
+# The view state a lane may hold, in floats: what a view gives alone (as
+# many floats as its angles), w, y·w, a·w, b·w and ∂b·w of each of its views
+# (csrc/varpro.cu kLaneStateFloats). Past 32 lanes of that the kernel has no
+# layout and the wrapper raises.
+LANE_STATE_FLOATS = 64
+# Views a lane holds while a group of up to 32 lanes can take the views, by
+# angle channels: fewer mean more lanes a texel, and so more copies of the
+# scalar solve; more mean more registers a thread and fewer warps an SM.
+# Chosen on an H100 at V=16 from S = 2, 4, 8 and 16 lanes a texel, among the
+# layouts the CPU bars take (PERF.md, the K1 findings; ROADMAP Queue C). Its
+# twin is csrc/varpro.cu's kViewsPerLane, which gives these instantiations
+# 20 warps an SM; the two must agree.
+VIEWS_PER_LANE_BY_ANGLES = {2: 8, 3: 4}
 # Kernel launches made by varpro_rows_cuda since the count was last reset.
 LAUNCHES = 0
 
@@ -103,13 +125,13 @@ def varpro_rows_plain(cfg: VarProConfig, ang, y, w, sig0, iters: int) -> torch.T
     one = torch.ones_like(y[:1])
     zero = torch.zeros_like(one)
     l0, u0, l1, u1 = cfg.box
+    a_count, v = ang.shape[0], ang.shape[1]
+    # the kernel's order; past its largest view count (where it raises) 32
+    # lanes of ⌈V/32⌉ views, so the plain version takes any V
+    lanes, vpl = lane_layout(a_count, v)[:2] if v <= max_views(a_count) else (32, -(-v // 32))
 
     def rsum(x):
-        # views summed left to right, in the kernel's order (see ops/shading.py)
-        acc = x[0:1]
-        for v in range(1, x.shape[0]):
-            acc = acc + x[v:v + 1]
-        return acc
+        return group_sum(x, lanes, vpl)
 
     def eval_sig(sig_row):
         i_val, d_params, _ = spec.eval(angles, (zero, one, sig_row))
@@ -184,33 +206,56 @@ def varpro_rows_plain(cfg: VarProConfig, ang, y, w, sig0, iters: int) -> torch.T
     ])
 
 
-def block_size(n_angles: int, v: int) -> tuple[int, int]:
-    """(texels per block, shared-memory bytes): the block stages
-    ``(A + 5)·V`` floats per texel (angles, w, y·w, a·w, b·w, ∂b·w); it
-    shrinks in steps of 32 texels until that fits, and raises when even 32
-    do not. There is no fallback."""
-    tb = 128       # the kernel's __launch_bounds__
-    while tb >= 32:
-        smem = (n_angles + 5) * v * tb * 4
-        if smem <= SMEM_LIMIT:
-            return tb, smem
-        tb -= 32
-    raise ValueError(
-        f"V={v} views do not fit the fused VarPro kernel's shared memory "
-        f"({(n_angles + 5) * v * 32 * 4} bytes for 32 texels > {SMEM_LIMIT})"
-    )
+def max_views(n_angles: int) -> int:
+    """The most views K1 takes: 32 lanes a texel, each within
+    ``LANE_STATE_FLOATS`` of view state (``n_angles + 5`` floats a view)."""
+    return 32 * (LANE_STATE_FLOATS // (n_angles + 5))
+
+
+def lane_layout(n_angles: int, v: int) -> tuple[int, int, int]:
+    """K1's layout for ``v`` views of ``n_angles`` channels → ``(S, VPL,
+    block_t)``: S lanes a texel (a power of two that divides 32), VPL = ⌈v / S⌉
+    views a lane (lane l holds views l, l + S, …), ``block_t`` = 128 / S
+    texels a block. S is the smallest that gives a lane at most
+    ``VIEWS_PER_LANE_BY_ANGLES[n_angles]`` views, or 32; past
+    :func:`max_views` it raises. It reads no texel count, so a texel's rows
+    do not depend on its batch. There is no fallback."""
+    if not 1 <= v <= max_views(n_angles):
+        raise ValueError(
+            f"V={v} views do not fit the fused VarPro kernel's registers "
+            f"(1 to {max_views(n_angles)} views for {n_angles + 5} floats a view)")
+    lanes = group_lanes(v, VIEWS_PER_LANE_BY_ANGLES[n_angles])
+    return lanes, -(-v // lanes), THREADS // lanes
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    fn = _build.load("varpro").brdf_varpro_fit
+    lib = _build.load("varpro")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.brdf_varpro_fit
     fn.argtypes = [
         i, p, p, p, p, p, i, i, i, i, p, p, i,
         f, f, f, f, i, f, f, f, f, f, f, f, i, p,
     ]
     fn.restype = ctypes.c_int
-    return fn
+    occ = lib.brdf_varpro_occupancy
+    occ.argtypes = [i, i, p]
+    occ.restype = ctypes.c_int
+    return fn, occ
+
+
+def occupancy(model: str, v: int) -> dict:
+    """What K1's instantiation for ``model`` at ``v`` views gets on the
+    current card: its layout, resident blocks and warps an SM, registers and
+    local-memory bytes a thread (the CUDA runtime's own figures)."""
+    spec = SHADING_KERNELS[model]
+    lanes, vpl, block_t = lane_layout(len(spec.angle_names), v)
+    res = (ctypes.c_int * 4)()
+    err = _entry()[1](spec.lobe_id, vpl, res)
+    if err != 0:
+        raise RuntimeError(f"K1 occupancy query failed with cudaError {err}")
+    return dict(lanes=lanes, views_per_lane=vpl, block_t=block_t, blocks_per_sm=res[0],
+                warps_per_sm=res[0] * res[3] // 32, registers=res[1], local_bytes=res[2])
 
 
 def varpro_rows_cuda(cfg: VarProConfig, ang, y, w, sig0, iters: int) -> torch.Tensor:
@@ -230,19 +275,19 @@ def varpro_rows_cuda(cfg: VarProConfig, ang, y, w, sig0, iters: int) -> torch.Te
         raise ValueError(f"K1 takes a (T,) sigma start, got {tuple(sig0.shape)}")
     if t >= 2**31 // 8:
         raise ValueError(f"K1 indexes texels with 32-bit ints; T={t} is too large")
+    lanes, vpl, _ = lane_layout(a_count, v)
     out = torch.empty((8, t), dtype=torch.float32, device=ang.device)
     if t == 0:
         return out
-    tb, smem = block_size(a_count, v)
     span = float(cfg.s_hi - cfg.s_lo)
     n = len(cfg.grid_sig)
     grid_sig = (ctypes.c_float * n)(*cfg.grid_sig)
     grid_t = (ctypes.c_float * n)(*cfg.grid_t)
     stream = torch.cuda.current_stream(ang.device).cuda_stream
-    err = _entry()(
+    err = _entry()[0](
         spec.lobe_id, ang.data_ptr(), y.data_ptr(), w.data_ptr(),
         None if sig0 is None else sig0.data_ptr(), out.data_ptr(),
-        t, v, tb, smem, grid_sig, grid_t, n,
+        t, v, lanes, vpl, grid_sig, grid_t, n,
         *cfg.box, int(cfg.use_log), cfg.s_lo, cfg.s_hi, cfg.p0_lo, cfg.p0_hi,
         span, 0.25 * span, 1e-6 * span, int(iters), stream,
     )

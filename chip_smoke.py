@@ -7,18 +7,26 @@ per source, in parallel), then:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. holds kernel K1 (the fused VarPro solve, ``csrc/varpro.cu``) against its
-   plain PyTorch version on the card, on ``bench.py::make_problem``'s
-   distribution (seed 0): blinn_phong and cook_torrance at T=131072,
-   phong and ward at T=16384, V=16, each without and with a start ``p0``
-   and without and with a weight mask on 4 views;
+   plain PyTorch version on the card, all 8 output rows to equality, on
+   ``bench.py::make_problem``'s distribution (seed 0): blinn_phong and
+   cook_torrance at T=131072, phong and ward at T=16384, V=16, each without
+   and with a start ``p0`` and without and with a weight mask on 4 views;
+   then each lobe at T=517 with V = 1, 5, 30, 37, 100, its largest and the
+   first V of every (S, VPL) ``lane_layout`` picks (every group width and
+   instantiation); one view past the largest raises; every instantiation
+   picked below 32 lanes a texel gets at least 20 warps an SM;
 3. checks the bench row's quality gates (blinn_phong, k=6, grid 8):
    recovery ≥ 0.97 and χ² p99 ≤ 1e-6;
 4. drives the port's main path, ``fit_per_texel``, on 131072 texels × 3
    channels × 16 views with the timber-blinn and bunny-ct solver settings,
    counts K1's launches (1 + robust_iters per fit) and holds the result
-   against the same pipeline run through the plain version on the card;
-5. times K1 and its plain version with CUDA events, and the warm main path
-   (host clock; device time by kernel from ``torch.profiler``);
+   against the same pipeline run through the plain version on the card
+   (stop codes, iterations, parameters and χ² equal);
+5. times K1 (CUDA events) at the bench row and at round 0 of both main-path
+   fits with its bound, lane layout, warps an SM and registers; on the same
+   inputs T halved and doubled, the grid alone and the Newton steps alone,
+   and S = 2, 4, 8 and 16 lanes a texel; its plain version; and the warm
+   main path (host clock; device time by kernel from ``torch.profiler``);
 6. holds the lobe library K0 (``csrc/lobes.cuh``, launched on its own through
    ``csrc/lobes_eval.cu``) against its plain twin: all ten lobes, value and
    both derivative sets;
@@ -169,10 +177,11 @@ from brdf_tpu_torch.utils.checkpoint import FitCheckpointer, latest_step  # noqa
 T_BENCH, V = 131072, 16
 T_SMALL = 16384
 CHANNELS = 3
-# parity bar between K1 and its plain version on the card: the two round
-# alike operation for operation (csrc/lobes.cuh), so all but a few lanes
-# must agree; 1e-4 relative with a 1e-3 floor on |param|
-PARITY_RTOL, PARITY_SHARE = 1e-4, 0.999
+# K1's parity cases past the main path's V=16, at a ragged T; phase_parity
+# adds each angle count's largest V and the first V of every (S, VPL) that
+# lane_layout picks (k1_layout_views), so that every group width and every
+# instantiation the wrapper can launch is held against the plain version
+K1_ODD_VIEWS = (1, 5, 30, 37, 100)
 # H100 SXM: HBM3 bandwidth and FP32 (non-tensor) peak, NVIDIA data sheet
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -248,11 +257,6 @@ def make_problem(rng: np.random.Generator, t: int, v: int, model: str):
     return ang, target, true_p.astype(np.float32)
 
 
-def agreement(a: torch.Tensor, b: torch.Tensor) -> float:
-    rel = (a - b).abs() / b.abs().clamp(min=1e-3)
-    return float((rel.amax(-1) < PARITY_RTOL).double().mean())
-
-
 def recovery(p: np.ndarray, true_p: np.ndarray) -> float:
     rel = (np.abs(p - true_p) / np.maximum(np.abs(true_p), 1e-3)).max(-1)
     return float((rel < 1e-2).mean())
@@ -264,7 +268,8 @@ def k1_operations(model: str, t: int, v: int, n_grid: int, iters: int, with_p0: 
     grid = 0 if with_p0 else n_grid * (lobe + GRID_ACC_OPS)
     newton = (iters + 1) * (lobe + NEWTON_ACC_OPS + RESID_OPS)
     staging = lobe + 4
-    return float(t) * (v * (staging + grid + newton) + PER_TEXEL_SOLVE_OPS * (n_grid + iters + 1))
+    solves = (0 if with_p0 else n_grid) + iters + 1
+    return float(t) * (v * (staging + grid + newton) + PER_TEXEL_SOLVE_OPS * solves)
 
 
 def k1_bytes(n_angles: int, t: int, v: int, with_p0: bool) -> float:
@@ -292,8 +297,59 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(runs))
 
 
+def k1_compare(name: str, out_k: torch.Tensor, out_p: torch.Tensor, errs: list[float]) -> dict:
+    """Every output row lane for lane; the bar is equality."""
+    check(torch.isfinite(out_k).all(), f"K1 {name}: non-finite output")
+    res = dict(lane_share=float(same(out_k, out_p).all(0).double().mean()),
+               max_abs_err=float(torch.nan_to_num(out_k - out_p).abs().max()))
+    errs.append(res["max_abs_err"])
+    log(f"K1 parity {name}: lanes equal {res['lane_share']:.6f} max|d| {res['max_abs_err']:.3g}")
+    check(res["lane_share"] == 1.0, f"K1 vs plain, {name}: {res}")
+    return res
+
+
+def k1_layout_views(a_count: int) -> dict:
+    """(S, VPL) → the fewest views for which ``lane_layout`` picks it, over
+    every view count K1 takes with ``a_count`` angle channels."""
+    first = {}
+    for v in range(1, k1.max_views(a_count) + 1):
+        first.setdefault(k1.lane_layout(a_count, v)[:2], v)
+    return first
+
+
+def phase_k1_occupancy() -> dict:
+    """Every instantiation ``lane_layout`` picks below 32 lanes a texel gets
+    at least 20 warps an SM (``csrc/varpro.cu``'s ``kViewsPerLane``, the
+    twin of ``VIEWS_PER_LANE_BY_ANGLES``, asks ``__launch_bounds__`` for 5
+    blocks of 4 warps; fewer views a lane may fit more), from the CUDA
+    runtime; the 32-lane ones are recorded. Per lobe and VPL: lanes, warps an SM, registers and local
+    bytes."""
+    res = {}
+    for model in ("blinn_phong", "phong", "cook_torrance", "ward"):
+        a_count = len(k0.SHADING_KERNELS[model].angle_names)
+        for (lanes, vpl), v in sorted(k1_layout_views(a_count).items()):
+            key = f"{model}/VPL={vpl}"
+            if key in res and lanes == 32:
+                continue
+            occ = k1.occupancy(model, v)
+            res[key] = dict(lanes=lanes, warps_per_sm=occ["warps_per_sm"],
+                            registers=occ["registers"], local_bytes=occ["local_bytes"])
+            if lanes < 32:
+                check(occ["warps_per_sm"] >= 20,
+                      f"K1 {model} at {vpl} views a lane, {lanes} lanes: {occ}")
+    log(f"K1 occupancy: {res}")
+    return res
+
+
 def phase_parity(errs: list[float]) -> dict:
-    """K1 against its plain version on identical inputs on the card."""
+    """K1 against its plain version on identical inputs on the card, all 8
+    output rows to equality: the four lobes at V=16 (blinn_phong and
+    cook_torrance at T=131072, phong and ward at T=16384), each without and
+    with a start and a weight mask on 4 views; then each lobe at T=517 with
+    the view counts of ``K1_ODD_VIEWS``, its angle count's largest and the
+    first V of every (S, VPL) ``lane_layout`` picks, so that every group
+    width and every instantiation is launched; one view past the largest
+    raises."""
     rng = np.random.default_rng(0)
     cases = {}
     for model, t in (("blinn_phong", T_BENCH), ("cook_torrance", T_BENCH),
@@ -310,20 +366,33 @@ def phase_parity(errs: list[float]) -> dict:
                                          p0 if with_p0 else None)
                 out_k = k1.varpro_rows_cuda(cfg, *inputs, iters=6)
                 torch.cuda.synchronize()
-                out_p = k1.varpro_rows_plain(cfg, *inputs, iters=6)
-                torch.cuda.synchronize()
-                check(torch.isfinite(out_k).all(), f"{model}: non-finite K1 output")
-                pk, pp = out_k[:3].T, out_p[:3].T
-                share = agreement(pk, pp)
-                stop_share = float((out_k[5] == out_p[5]).double().mean())
-                err = float((out_k[:4] - out_p[:4]).abs().max())
-                errs.append(err)
                 name = f"{model}/T={t}/p0={int(with_p0)}/mask={int(masked)}"
-                cases[name] = dict(param_share=share, stop_share=stop_share, max_abs_err=err)
-                log(f"parity {name}: params {share:.6f} stop {stop_share:.6f} max|d| {err:.3g}")
-                check(share >= PARITY_SHARE, f"K1 vs plain params agree on {share} of lanes ({name})")
-                check(stop_share >= PARITY_SHARE,
-                      f"K1 vs plain stop codes agree on {stop_share} ({name})")
+                cases[name] = k1_compare(name, out_k, k1.varpro_rows_plain(cfg, *inputs, iters=6),
+                                         errs)
+    for model in ("blinn_phong", "phong", "cook_torrance", "ward"):
+        cfg = k1.config(model)
+        a_count = len(k0.SHADING_KERNELS[model].angle_names)
+        v_max = k1.max_views(a_count)
+        for v in sorted(set(K1_ODD_VIEWS + (v_max,)) | set(k1_layout_views(a_count).values())):
+            ang, target, true_p = make_problem(rng, T_ODD, v, model)
+            weights = torch.tensor(rng.uniform(0.0, 1.0, (T_ODD, v)) > 0.2, dtype=torch.float32,
+                                   device=DEVICE)
+            p0 = torch.tensor(true_p, device=DEVICE)
+            for with_p0 in (False, True):
+                inputs = k1.stack_inputs(model, ang, target, weights, p0 if with_p0 else None)
+                out_k = k1.varpro_rows_cuda(cfg, *inputs, iters=16)
+                torch.cuda.synchronize()
+                layout = k1.lane_layout(inputs[0].shape[0], v)[:2]
+                name = f"{model}/T={T_ODD}/V={v}/layout={layout}/p0={int(with_p0)}"
+                cases[name] = k1_compare(name, out_k, k1.varpro_rows_plain(cfg, *inputs, iters=16),
+                                         errs)
+        ang, target, _ = make_problem(rng, 64, v_max + 1, model)
+        try:
+            k1.varpro_rows_cuda(cfg, *k1.stack_inputs(model, ang, target), iters=1)
+        except ValueError:
+            pass
+        else:
+            check(False, f"{model}: K1 took V={v_max + 1} views, past its largest")
     return cases
 
 
@@ -410,19 +479,17 @@ def phase_main_path(errs: list[float]) -> tuple[int, dict, dict]:
         with mock.patch.object(pfit, "varpro_fit_fused", _plain_fused):
             ref = _fit(problems[name][0], cfg)
         torch.cuda.synchronize()
-        p, pr = rep.params.reshape(-1, 3), ref.params.reshape(-1, 3)
         check(rep.params.shape == (T_BENCH, CHANNELS, 3), f"{name}: parameters of shape (T, C, 3)")
         check(torch.isfinite(rep.params).all() and torch.isfinite(rep.result.chi2).all(),
               f"{name}: finite parameters and chi2")
-        share = agreement(p, pr)
-        err = float((p - pr).abs().max())
-        errs.append(err)
-        rec = recovery(p.cpu().numpy(), problems[name][1].reshape(-1, 3))
+        share = report_share(rep, ref)
+        errs.append(share["max_abs_err"])
+        rec = recovery(rep.params.reshape(-1, 3).cpu().numpy(), problems[name][1].reshape(-1, 3))
         out[name] = dict(launches=counts[name], fits=T_BENCH * CHANNELS, first_wall_s=secs,
-                         param_share=share, max_abs_err=err, recovery_frac=rec,
-                         chi2_median=float(rep.result.chi2.median()))
+                         **share, recovery_frac=rec, chi2_median=float(rep.result.chi2.median()))
         log(f"main path {name}: {out[name]}")
-        check(share >= PARITY_SHARE, f"{name}: kernel path vs plain path agree on {share}")
+        for key in ("stop_share", "iters_share", "param_share", "chi2_share"):
+            check(share[key] == 1.0, f"{name}: K1 path vs plain path, {key} = {share[key]}")
     return launches, out, {name: prob for name, (prob, _) in problems.items()}
 
 
@@ -486,30 +553,84 @@ def phase_breakdown(problems: dict, main_path: dict, fit, kernel: str) -> dict:
     return out
 
 
-def phase_timing(bench_inputs) -> dict:
-    """K1 and its plain version at the bench row and at one main-path call
-    (timber-blinn round 0: 393216 lanes, k=16, weights)."""
+# K1's lane layouts timed at V=16: S lanes a texel, 16 / S views a lane;
+# lane_layout's choice among them rests on these times
+K1_LAYOUTS_V16 = (2, 4, 8, 16)
+
+
+def k1_calls(bench_inputs) -> dict:
+    """K1's three timed calls, name → (model, config, inputs, iters): the bench
+    row (blinn_phong, 131072 × 16, k=6, no weights) and round 0 of each
+    VarPro main-path fit (393216 lanes × 16 views, k=16, the preset's box,
+    saturation weights, the in-kernel grid)."""
     ang_b, target_b = bench_inputs
-    cfg_b = k1.config("blinn_phong")
-    in_b = k1.stack_inputs("blinn_phong", ang_b, target_b)
-    problem, _ = _texel_problem("blinn_phong", seed=1)
-    ang_m = ShadingAngles(*(a.repeat_interleave(CHANNELS, 0) for a in problem.angles[:4]))
-    y_m = problem.intensity.permute(0, 2, 1).reshape(-1, V)
-    w_m = (y_m < 0.98).float()
-    in_m = k1.stack_inputs("blinn_phong", ang_m, y_m, w_m)
+    calls = {"bench": ("blinn_phong", k1.config("blinn_phong"),
+                       k1.stack_inputs("blinn_phong", ang_b, target_b), 6)}
+    for i, (name, cfg) in enumerate(MAIN_PATH.items()):
+        model = cfg["model"]
+        problem, _ = _texel_problem(model, seed=i + 1)
+        ang = ShadingAngles(*(None if a is None else a.repeat_interleave(CHANNELS, 0)
+                              for a in problem.angles))
+        y = problem.intensity.permute(0, 2, 1).reshape(-1, V)
+        calls[name] = (model, k1.config(model, cfg["lower"], cfg["upper"]),
+                       k1.stack_inputs(model, ang, y, saturation_weights(y)), 16)
+    return calls
+
+
+def k1_timed(model: str, cfg, inputs, iters: int, layout=None) -> dict:
+    """K1's time (CUDA events, 20 back-to-back launches, median of 3) with
+    its layout and occupancy, at ``lane_layout``'s choice or at ``layout`` =
+    S lanes a texel forced in its place."""
+    forced = (nullcontext() if layout is None else mock.patch.object(
+        k1, "lane_layout", lambda a, v: (layout, -(-v // layout), k1.THREADS // layout)))
+    with forced:
+        ms = cuda_ms(lambda: k1.varpro_rows_cuda(cfg, *inputs, iters=iters), reps=20)
+        occ = k1.occupancy(model, inputs[0].shape[1])
+    return dict(ms=ms, layout=[occ["lanes"], occ["views_per_lane"], occ["block_t"]],
+                warps_per_sm=occ["warps_per_sm"], registers=occ["registers"],
+                local_bytes=occ["local_bytes"])
+
+
+def k1_bound(model: str, cfg, inputs, iters: int) -> dict:
+    a_count, v, t = inputs[0].shape
+    with_p0 = inputs[3] is not None
+    return bound_of(k1_bytes(a_count, t, v, with_p0),
+                    k1_operations(model, t, v, len(cfg.grid_sig), iters, with_p0))
+
+
+def phase_timing(bench_inputs) -> dict:
+    """K1 (CUDA events; 20 back-to-back launches, median of 3) and its plain
+    version at ``k1_calls``' three calls, with the bound, the layout, warps
+    an SM, registers and local bytes of the launched instantiation; beside
+    them, on the same inputs: T halved and doubled, the grid alone (k=0)
+    and the Newton steps alone (from a start: the kernel's own σ), and the
+    layouts of ``K1_LAYOUTS_V16``."""
     saved = k1.LAUNCHES
     res = {}
-    for key, inputs, iters in (("bench", in_b, 6), ("main", in_m, 16)):
+    for name, (model, cfg, inputs, iters) in k1_calls(bench_inputs).items():
         t = inputs[0].shape[-1]
-        ms = cuda_ms(lambda: k1.varpro_rows_cuda(cfg_b, *inputs, iters=iters), reps=20)
-        plain_ms = cuda_ms(lambda: k1.varpro_rows_plain(cfg_b, *inputs, iters=iters), reps=2)
-        ops = k1_operations("blinn_phong", t, V, len(cfg_b.grid_sig), iters, False)
-        nbytes = k1_bytes(2, t, V, False)
-        bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": ops / FP32_OPS_PER_S * 1e3}
-        bound_by = max(bound, key=bound.get)
-        res[key] = dict(texels=t, iters=iters, ms=ms, plain_ms=plain_ms,
-                        fits_per_s=t / (ms * 1e-3), bytes=nbytes, operations=ops,
-                        bound_ms=bound[bound_by], bound_by=bound_by)
+        row = res[name] = dict(model=model, texels=t, grid=len(cfg.grid_sig), iters=iters,
+                               **k1_timed(model, cfg, inputs, iters),
+                               **k1_bound(model, cfg, inputs, iters))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["fits_per_s"] = t / (row["ms"] * 1e-3)
+        row["plain_ms"] = cuda_ms(lambda: k1.varpro_rows_plain(cfg, *inputs, iters=iters), reps=1)
+        scaled = [halve_double(x, t) for x in inputs[:3]]
+        for i, tag in enumerate(("half", "double")):
+            part = tuple(pair[i] for pair in scaled) + (None,)
+            row[f"texels_{tag}"] = dict(texels=part[0].shape[-1],
+                                        ms=k1_timed(model, cfg, part, iters)["ms"],
+                                        bound_ms=k1_bound(model, cfg, part, iters)["bound_ms"])
+        del scaled, part
+        sig0 = k1.varpro_rows_cuda(cfg, *inputs, iters=iters)[2].contiguous()
+        started = inputs[:3] + (sig0,)
+        row["grid_only"] = dict(iters=0, ms=k1_timed(model, cfg, inputs, 0)["ms"],
+                                bound_ms=k1_bound(model, cfg, inputs, 0)["bound_ms"])
+        row["newton_only"] = dict(iters=iters, ms=k1_timed(model, cfg, started, iters)["ms"],
+                                  bound_ms=k1_bound(model, cfg, started, iters)["bound_ms"])
+        row["layouts_v16"] = {str(lay): k1_timed(model, cfg, inputs, iters, lay)
+                              for lay in K1_LAYOUTS_V16}
+        log(f"K1 timing {name}: {row}")
     k1.LAUNCHES = saved                          # timing launches are not the main path's
     return res
 
@@ -2723,6 +2844,7 @@ def main() -> int:
     # K1 and the VarPro main path
     errs_parity: list[float] = []
     parity = phase_parity(errs_parity)
+    k1_occupancy = phase_k1_occupancy()
     gates, bench_inputs = phase_gates()
     errs_main: list[float] = []
     launches, main_path, problems = phase_main_path(errs_main)
@@ -2806,9 +2928,10 @@ def main() -> int:
     numbers = {
         "numbers": {
             "card": card, "kernel": "K1 varpro (csrc/varpro.cu)",
-            "bench_row": dict(timing["bench"], model="blinn_phong", grid=8, **gates),
-            "main_path_call": dict(timing["main"], model="blinn_phong"),
+            "bench_row": dict(timing["bench"], **gates),
+            "main_path_calls": {name: timing[name] for name in MAIN_PATH},
             "main_path": main_path, "main_path_warm": breakdown, "parity": parity,
+            "occupancy": k1_occupancy, "ptxas": {"varpro": ptxas_numbers().get("varpro")},
         },
         "numbers_lm": {
             "card": card, "kernel": "K5 fused LM (csrc/lm.cu), K0 lobes (csrc/lobes.cuh)",
@@ -2817,7 +2940,7 @@ def main() -> int:
             "main_path_calls": {k: v for k, v in lm_timing.items() if k != "lm-general-row"},
             "main_path": lm_main_path, "main_path_warm": lm_breakdown, "chunked": chunked,
             "ptxas": {k: v for k, v in ptxas_numbers().items()
-                      if k not in ("shade", "ne", "joint_ne", "varpro_nd")},
+                      if k not in ("varpro", "shade", "ne", "joint_ne", "varpro_nd")},
         },
         "numbers_render": {
             "card": card, "kernel": "K2, K3, K4 shading forward and backward (csrc/shade.cu)",
@@ -2848,7 +2971,7 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_numbers.json"), "w") as fh:
         json.dump(numbers, fh, indent=1)
-    main_t, k0_t, k5_t = timing["main"], k0_cases["timing"], lm_timing["lm-blinn"]
+    main_t, k0_t, k5_t = timing["timber-blinn"], k0_cases["timing"], lm_timing["lm-blinn"]
     k6_t = ne_timing["k6"]["routed_fit"]["full/weighted"]
     k7_t = ne_timing["k7"]["main_path"]["full"]
     k8_t = k8_timing["timber-aniso-varpro"]
@@ -2877,6 +3000,7 @@ def main() -> int:
         "bound_by": k0_t["bound_by"],
         "library_ms": None,
     }, {
+        # round 0 of timber-blinn (blinn_phong, 393216 lanes, grid, k=16)
         "name": "varpro_k1",
         "route": "cuda",
         "source": "brdf_tpu_torch/csrc/varpro.cu",
@@ -2888,6 +3012,11 @@ def main() -> int:
         "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"],
         "library_ms": None,
+        "layout": main_t["layout"],
+        "warps_per_sm": main_t["warps_per_sm"],
+        # the main path's other K1 call: round 0 of bunny-ct (cook_torrance)
+        "bunny_ct": {key: timing["bunny-ct"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "layout", "warps_per_sm")},
     },
         shade_entry("shade_fwd_k2", "fwd", "brdf_tpu/ops/shading_pallas.py:531",
                     shade_timing["relight_call"]),

@@ -123,14 +123,6 @@ def test_config_matches_pallas_grid_and_box(model):
     assert cfg.use_log == ("phong" in model)
 
 
-def test_block_size_shrinks_then_raises():
-    assert tvp.block_size(3, 16) == (128, 8 * 16 * 128 * 4)
-    tb, smem = tvp.block_size(3, 64)
-    assert tb % 32 == 0 and tb < 128 and smem <= tvp.SMEM_LIMIT
-    with pytest.raises(ValueError, match="shared memory"):
-        tvp.block_size(3, 1024)
-
-
 def test_cpu_tensors_take_the_plain_version_and_never_the_kernel():
     """On CPU tensors the wrapper runs the plain version (no launch is
     counted); the kernel's launcher refuses CPU tensors instead of falling
