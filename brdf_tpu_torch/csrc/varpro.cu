@@ -38,10 +38,19 @@
 // The work is fixed (grid + 1 + iters evaluations, no early exit), so no
 // texel is refilled. ops/varpro.py::lane_layout picks (S, VPL) from A and V,
 // for the wrapper and the plain version alike (at V=16: (2, 8) for the
-// two-channel lobes, (4, 4) for the three-channel ones); past 32 lanes of
-// kLaneStateFloats the wrapper raises. There is no fallback. Each copy of
-// the scalar solve costs issue slots, so the fewest lanes whose state fits
-// 20 warps an SM win.
+// two-channel lobes, (4, 4) for the three-channel ones). Each copy of the
+// scalar solve costs issue slots, so the fewest lanes whose state fits 20
+// warps an SM win.
+//
+// Past 32 lanes of kLaneStateFloats (288 views for the two-channel lobes,
+// 256 for the three-channel ones) the views do not fit registers, and the
+// same kernel runs its long-view path (VPL = 0, one instantiation a lobe;
+// ops/lanegroup.py::long_view_layout): 32 lanes a texel, lane l walking views
+// l, l + 32, … in a run-time loop, each view read anew from device memory in
+// every pass (the inputs are read 1 + grid + 2·(1 + iters) times; L2 holds
+// a block's rows between passes). It sums in the same lane order, so the
+// plain version's group_sum covers both paths, and it takes any V: it is the
+// kernel at that size, not a fallback.
 //
 // χ² is formed from residuals in a second pass over a lane's views (the Gram
 // identity's f32 cancellation floors χ² and breaks the accept test).
@@ -145,13 +154,20 @@ __host__ __device__ constexpr int max_vpl() {
 
 // the blocks an SM __launch_bounds__ asks for: 5 (20 warps, at most 102
 // registers a thread) up to the views a lane holds below 32 lanes a texel
-// (kViewsPerLane), else 4 (16 warps, 128 registers), where 102 would spill
-// the views' state
+// (kViewsPerLane) and on the long-view path (VPL = 0), else 4 (16 warps, 128
+// registers), where 102 would spill the views' state
 template <int L, int VPL>
 __host__ __device__ constexpr int min_blocks() {
   return VPL <= kViewsPerLane[brdf::LobeTraits<L>::n_angles] ? 5 : 4;
 }
 
+// VPL > 0: a lane holds VPL views in registers (the register layouts of
+// lane_layout). VPL = 0: the long-view path, past the register layouts: 32
+// lanes a texel, lane l walking views l, l + 32, … (⌈V / 32⌉ of them, a
+// run-time count), each read anew from device memory into slot 0 in every pass; pass 2
+// evaluates the lobe again where the register path reads b·w and ∂b·w kept
+// from pass 1, with the same operations, so both paths give the bits of the
+// plain version's sum order.
 template <int L, int VPL>
 __global__ void __launch_bounds__(kThreads, (min_blocks<L, VPL>()))
 varpro_kernel(const float* __restrict__ ang,   // (A, V, T)
@@ -161,34 +177,43 @@ varpro_kernel(const float* __restrict__ ang,   // (A, V, T)
               float* __restrict__ out,         // (8, T)
               int T, int V, int S, GridArgs grid, SolveArgs s) {
   constexpr int A = brdf::LobeTraits<L>::n_angles;
-  static_assert(VPL >= 1 && VPL <= max_vpl<L>(), "a lane's view state fits its budget");
+  static_assert(VPL >= 0 && VPL <= max_vpl<L>(), "a lane's view state fits its budget");
+  constexpr bool kLong = VPL == 0;
+  constexpr int kSlots = kLong ? 1 : VPL;
   const brdf::LaneGroup lg = brdf::lane_group(S);
   // ragged edge: lanes past T stay for the shuffles on the last texel, unwritten
   const bool live = lg.item < T;
   const long t = live ? lg.item : T - 1;
   const long vt = static_cast<long>(V) * T;
+  const int n_slots = kLong ? (V + S - 1) / S : VPL;
 
-  // this lane's views k·S + lane; only the last slot can fall past V
-  ViewPart<L> vp[VPL];
-  float wv[VPL], yw[VPL], aw[VPL], bw[VPL], dbw[VPL];
-  bool in_v[VPL];
-  float a_sums[2] = {0.0f, 0.0f};  // Σ a·a, Σ a·y
-#pragma unroll
-  for (int k = 0; k < VPL; ++k) {
+  // this lane's views k·S + lane; only the last slot can fall past V. On the
+  // long-view path slot k lives in slot 0 (i = 0) while its pass uses it.
+  ViewPart<L> vp[kSlots];
+  float wv[kSlots], yw[kSlots], aw[kSlots], bw[kSlots], dbw[kSlots];
+  bool in_v[kSlots];
+  // slot k's view into slot i: what it gives alone, w, y·w and a·w (the
+  // diffuse basis is σ-independent for every separable lobe)
+  auto load = [&](int k, int i) {
     const int v = k * S + lg.lane;
-    in_v[k] = v < V;
-    const long gi = static_cast<long>(in_v[k] ? v : V - 1) * T + t;
+    in_v[i] = v < V;
+    const long gi = static_cast<long>(in_v[i] ? v : V - 1) * T + t;
     float av[A];
 #pragma unroll
     for (int a = 0; a < A; ++a) av[a] = ang[a * vt + gi];
-    wv[k] = w[gi];
-    yw[k] = y[gi] * wv[k];
-    // the diffuse basis is σ-independent for every separable lobe
-    aw[k] = brdf::lobe_full<L>(av, 0.0f, 1.0f, grid.sig[0]).dp[0] * wv[k];
-    vp[k] = view_part<L>(av);
-    if (in_v[k]) {
-      a_sums[0] += aw[k] * aw[k];
-      a_sums[1] += aw[k] * yw[k];
+    wv[i] = w[gi];
+    yw[i] = y[gi] * wv[i];
+    aw[i] = brdf::lobe_full<L>(av, 0.0f, 1.0f, grid.sig[0]).dp[0] * wv[i];
+    vp[i] = view_part<L>(av);
+  };
+  float a_sums[2] = {0.0f, 0.0f};  // Σ a·a, Σ a·y
+#pragma unroll
+  for (int k = 0; k < n_slots; ++k) {
+    const int i = kLong ? 0 : k;
+    load(k, i);
+    if (in_v[i]) {
+      a_sums[0] += aw[i] * aw[i];
+      a_sums[1] += aw[i] * yw[i];
     }
   }
   group_sum(a_sums, S);
@@ -206,14 +231,16 @@ varpro_kernel(const float* __restrict__ ang,   // (A, V, T)
       const float sig = grid.sig[gi];
       float b_sums[3] = {0.0f, 0.0f, 0.0f};  // Σ a·b, b·b, b·y
 #pragma unroll
-      for (int k = 0; k < VPL; ++k) {
+      for (int k = 0; k < n_slots; ++k) {
+        const int i = kLong ? 0 : k;
+        if constexpr (kLong) load(k, 0);
         float bk, dbk;
-        shape_part<L>(vp[k], sig, bk, dbk);
-        const float bwk = bk * wv[k];
-        if (in_v[k]) {
-          b_sums[0] += aw[k] * bwk;
+        shape_part<L>(vp[i], sig, bk, dbk);
+        const float bwk = bk * wv[i];
+        if (in_v[i]) {
+          b_sums[0] += aw[i] * bwk;
           b_sums[1] += bwk * bwk;
-          b_sums[2] += bwk * yw[k];
+          b_sums[2] += bwk * yw[i];
         }
       }
       group_sum(b_sums, S);
@@ -231,22 +258,28 @@ varpro_kernel(const float* __restrict__ ang,   // (A, V, T)
   // profiled χ², gradient, projected curvature, kd and ks at coordinate tv
   auto eval_at = [&](float tv, float& chi2, float& g, float& h, float& kd, float& ks) {
     const float sig = s.use_log ? expf(tv) : tv;
+    // slot i's b·w and ∂b·w (in the Newton coordinate) at σ
+    auto shape_at = [&](int i) {
+      float bk, dbk;
+      shape_part<L>(vp[i], sig, bk, dbk);
+      const float db_t = s.use_log ? dbk * sig : dbk;
+      bw[i] = bk * wv[i];
+      dbw[i] = db_t * wv[i];
+    };
     // pass 1: the lobe; Σ a·b, b·b, b·y, a·∂b, b·∂b, ∂b·∂b
     float b_sums[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-      float bk, dbk;
-      shape_part<L>(vp[k], sig, bk, dbk);
-      const float db_t = s.use_log ? dbk * sig : dbk;
-      bw[k] = bk * wv[k];
-      dbw[k] = db_t * wv[k];
-      if (in_v[k]) {
-        b_sums[0] += aw[k] * bw[k];
-        b_sums[1] += bw[k] * bw[k];
-        b_sums[2] += bw[k] * yw[k];
-        b_sums[3] += aw[k] * dbw[k];
-        b_sums[4] += bw[k] * dbw[k];
-        b_sums[5] += dbw[k] * dbw[k];
+    for (int k = 0; k < n_slots; ++k) {
+      const int i = kLong ? 0 : k;
+      if constexpr (kLong) load(k, 0);
+      shape_at(i);
+      if (in_v[i]) {
+        b_sums[0] += aw[i] * bw[i];
+        b_sums[1] += bw[i] * bw[i];
+        b_sums[2] += bw[i] * yw[i];
+        b_sums[3] += aw[i] * dbw[i];
+        b_sums[4] += bw[i] * dbw[i];
+        b_sums[5] += dbw[i] * dbw[i];
       }
     }
     group_sum(b_sums, S);
@@ -255,11 +288,16 @@ varpro_kernel(const float* __restrict__ ang,   // (A, V, T)
     bvls2(aa, ab, bb, ay, by, s.l0, s.u0, s.l1, s.u1, kd, ks);
     float r_sums[2] = {0.0f, 0.0f};  // pass 2: χ² and Σ r·∂b from residuals
 #pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-      const float rw = yw[k] - kd * aw[k] - ks * bw[k];
-      if (in_v[k]) {
+    for (int k = 0; k < n_slots; ++k) {
+      const int i = kLong ? 0 : k;
+      if constexpr (kLong) {
+        load(k, 0);
+        shape_at(0);
+      }
+      const float rw = yw[i] - kd * aw[i] - ks * bw[i];
+      if (in_v[i]) {
         r_sums[0] += rw * rw;
-        r_sums[1] += rw * dbw[k];
+        r_sums[1] += rw * dbw[i];
       }
     }
     group_sum(r_sums, S);
@@ -312,27 +350,28 @@ varpro_kernel(const float* __restrict__ ang,   // (A, V, T)
 using KernelFn = void (*)(const float*, const float*, const float*, const float*, float*, int,
                           int, int, GridArgs, SolveArgs);
 
-// the instantiation for VPL = vpl views a lane, or null past the lobe's budget
+// the instantiation for VPL = vpl views a lane in registers, or past the
+// lobe's budget the long-view path's (32 lanes a texel only)
 template <int L, int VPL = 1>
-KernelFn kernel_for(int vpl) {
+KernelFn kernel_for(int vpl, int lanes) {
   if constexpr (VPL > max_vpl<L>()) {
-    return nullptr;
+    return lanes == 32 ? varpro_kernel<L, 0> : nullptr;
   } else {
     if (vpl == VPL) return varpro_kernel<L, VPL>;
-    return kernel_for<L, VPL + 1>(vpl);
+    return kernel_for<L, VPL + 1>(vpl, lanes);
   }
 }
 
-KernelFn pick_kernel(int lobe, int vpl) {
+KernelFn pick_kernel(int lobe, int vpl, int lanes) {
   switch (lobe) {
     case brdf::LOBE_BLINN_PHONG:
-      return kernel_for<brdf::LOBE_BLINN_PHONG>(vpl);
+      return kernel_for<brdf::LOBE_BLINN_PHONG>(vpl, lanes);
     case brdf::LOBE_PHONG:
-      return kernel_for<brdf::LOBE_PHONG>(vpl);
+      return kernel_for<brdf::LOBE_PHONG>(vpl, lanes);
     case brdf::LOBE_COOK_TORRANCE:
-      return kernel_for<brdf::LOBE_COOK_TORRANCE>(vpl);
+      return kernel_for<brdf::LOBE_COOK_TORRANCE>(vpl, lanes);
     case brdf::LOBE_WARD:
-      return kernel_for<brdf::LOBE_WARD>(vpl);
+      return kernel_for<brdf::LOBE_WARD>(vpl, lanes);
     default:
       return nullptr;
   }
@@ -352,7 +391,7 @@ extern "C" int brdf_varpro_fit(int lobe, const float* ang, const float* y, const
   if (n_grid < 1 || n_grid > kMaxGrid || T < 1 || V < 1 || !lanes_ok || vpl < 1 ||
       static_cast<long>(vpl) * lanes < V || static_cast<long>(vpl - 1) * lanes >= V)
     return static_cast<int>(cudaErrorInvalidValue);
-  const KernelFn kernel = pick_kernel(lobe, vpl);
+  const KernelFn kernel = pick_kernel(lobe, vpl, lanes);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   GridArgs grid;
   for (int i = 0; i < kMaxGrid; ++i) {
@@ -373,8 +412,8 @@ extern "C" int brdf_varpro_fit(int lobe, const float* ang, const float* y, const
 // SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at kThreads threads and no
 // shared memory), out[1] registers a thread, out[2] local memory bytes a
 // thread (stack and spills), out[3] threads a block.
-extern "C" int brdf_varpro_occupancy(int lobe, int vpl, int* out) {
-  const KernelFn kernel = pick_kernel(lobe, vpl);
+extern "C" int brdf_varpro_occupancy(int lobe, int vpl, int lanes, int* out) {
+  const KernelFn kernel = pick_kernel(lobe, vpl, lanes);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);

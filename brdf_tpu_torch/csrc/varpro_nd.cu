@@ -42,7 +42,16 @@
 // a slot past V runs on a clamped view and its terms are left out by select.
 // ops/varpro_nd.py::lane_layout picks (S, VPL) from V, for the wrapper and the
 // plain version alike; a lane keeps at most kLaneStateFloats floats of view
-// state, and past that the wrapper raises. There is no fallback.
+// state.
+//
+// Past 32 lanes of that (192 views for cook_torrance_fresnel, 160 for
+// ward_aniso, 128 for cook_torrance_aniso) the same kernel runs its long-view
+// path (VPL = 0, one instantiation a lobe; ops/lanegroup.py::
+// long_view_layout): 32 lanes a texel, lane l walking views l, l + 32, … in a
+// run-time loop, each view read anew from device memory in every pass and the
+// lobe evaluated in each of a Newton step's three passes. It sums in the same
+// lane order, so the plain version's group_sum covers both paths, and it
+// takes any V: it is the kernel at that size, not a fallback.
 //
 // A Newton step needs three passes over a lane's views, because the
 // projection coefficients x1, x2 of the curvature come from view sums of the
@@ -143,6 +152,13 @@ __device__ __forceinline__ bool solve_damped_sym(const float (&h)[D * (D + 1) / 
   }
 }
 
+// VPL > 0: a lane holds VPL views in registers (the register layouts of
+// lane_layout). VPL = 0: the long-view path, past the register layouts: 32
+// lanes a texel, lane l walking views l, l + 32, … (⌈V / 32⌉ of them, a
+// run-time count), each read anew from device memory into slot 0 in every
+// pass; passes 2 and 3 evaluate the lobe again where the register path reads
+// b·w and ∂b_j kept from pass 1, with the same operations, so both paths give
+// the bits of the plain version's sum order.
 template <int L, int D, int VPL>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 varpro_nd_kernel(const float* __restrict__ ang,   // (A, V, T)
@@ -155,16 +171,20 @@ varpro_nd_kernel(const float* __restrict__ ang,   // (A, V, T)
   constexpr int NP = brdf::LobeTraits<L>::n_params;
   constexpr int NH = D * (D + 1) / 2;
   static_assert(NP == D + 2, "a separable lobe: kd, ks and d shape parameters");
-  static_assert(VPL >= 1 && VPL <= max_vpl<L, D>(), "a lane's view state fits its budget");
+  static_assert(VPL >= 0 && VPL <= max_vpl<L, D>(), "a lane's view state fits its budget");
+  constexpr bool kLong = VPL == 0;
+  constexpr int kSlots = kLong ? 1 : VPL;
   const brdf::LaneGroup lg = brdf::lane_group(S);
   // ragged edge: lanes past T stay for the shuffles on the last texel, unwritten
   const bool live = lg.item < T;
   const long t = live ? lg.item : T - 1;
   const long vt = static_cast<long>(V) * T;
+  const int n_slots = kLong ? (V + S - 1) / S : VPL;
 
-  // this lane's views k·S + lane; only the last slot can fall past V
-  float av[VPL][A], wv[VPL], yw[VPL], aw[VPL], bw[VPL], db[VPL][D];
-  bool in_v[VPL];
+  // this lane's views k·S + lane; only the last slot can fall past V. On the
+  // long-view path slot k lives in slot 0 (i = 0) while its pass uses it.
+  float av[kSlots][A], wv[kSlots], yw[kSlots], aw[kSlots], bw[kSlots], db[kSlots][D];
+  bool in_v[kSlots];
   float p[NP];
   p[0] = 0.0f;
   p[1] = 1.0f;
@@ -172,21 +192,29 @@ varpro_nd_kernel(const float* __restrict__ ang,   // (A, V, T)
   for (int j = 0; j < D; ++j) p[2 + j] = grid.shape[0][j];
 
   const brdf::LobePoint pt0 = brdf::lobe_point<L>(p);
+  float p_a[NP];  // the start point: a·w of a view read again (long-view path)
+#pragma unroll
+  for (int j = 0; j < NP; ++j) p_a[j] = p[j];
+  // slot k's view into slot i: angles, w, y·w and a·w (the diffuse basis is
+  // shape-independent for every separable lobe)
+  auto load = [&](int k, int i) {
+    const int v = k * S + lg.lane;
+    in_v[i] = v < V;
+    const long gi = static_cast<long>(in_v[i] ? v : V - 1) * T + t;
+#pragma unroll
+    for (int a = 0; a < A; ++a) av[i][a] = ang[a * vt + gi];
+    wv[i] = w[gi];
+    yw[i] = y[gi] * wv[i];
+    aw[i] = brdf::lobe_full<L>(av[i], p_a, pt0).dp[0] * wv[i];
+  };
   float a_sums[2] = {0.0f, 0.0f};  // Σ a·a, Σ a·y
 #pragma unroll
-  for (int k = 0; k < VPL; ++k) {
-    const int v = k * S + lg.lane;
-    in_v[k] = v < V;
-    const long gi = static_cast<long>(in_v[k] ? v : V - 1) * T + t;
-#pragma unroll
-    for (int a = 0; a < A; ++a) av[k][a] = ang[a * vt + gi];
-    wv[k] = w[gi];
-    yw[k] = y[gi] * wv[k];
-    // the diffuse basis is shape-independent for every separable lobe
-    aw[k] = brdf::lobe_full<L>(av[k], p, pt0).dp[0] * wv[k];
-    if (in_v[k]) {
-      a_sums[0] += aw[k] * aw[k];
-      a_sums[1] += aw[k] * yw[k];
+  for (int k = 0; k < n_slots; ++k) {
+    const int i = kLong ? 0 : k;
+    load(k, i);
+    if (in_v[i]) {
+      a_sums[0] += aw[i] * aw[i];
+      a_sums[1] += aw[i] * yw[i];
     }
   }
   group_sum(a_sums, S);
@@ -217,12 +245,14 @@ varpro_nd_kernel(const float* __restrict__ ang,   // (A, V, T)
         for (int j = 0; j < D; ++j) pq[2 + j] = grid.shape[gi][j];
         const brdf::LobePoint pt = brdf::lobe_point<L>(pq);
 #pragma unroll
-        for (int k = 0; k < VPL; ++k) {
-          const float bwk = brdf::lobe_full<L>(av[k], pq, pt).i * wv[k];
-          if (in_v[k]) {
-            b_sums[3 * q] += aw[k] * bwk;
+        for (int k = 0; k < n_slots; ++k) {
+          const int i = kLong ? 0 : k;
+          if constexpr (kLong) load(k, 0);
+          const float bwk = brdf::lobe_full<L>(av[i], pq, pt).i * wv[i];
+          if (in_v[i]) {
+            b_sums[3 * q] += aw[i] * bwk;
             b_sums[3 * q + 1] += bwk * bwk;
-            b_sums[3 * q + 2] += bwk * yw[k];
+            b_sums[3 * q + 2] += bwk * yw[i];
           }
         }
       }
@@ -250,17 +280,23 @@ varpro_nd_kernel(const float* __restrict__ ang,   // (A, V, T)
 #pragma unroll
     for (int j = 0; j < D; ++j) p[2 + j] = sh[j];
     const brdf::LobePoint pt = brdf::lobe_point<L>(p);
+    // slot i's lobe at p: b·w and the ∂b_j
+    auto lobe_at = [&](int i) {
+      const brdf::LobeOut<L> o = brdf::lobe_full<L>(av[i], p, pt);
+      bw[i] = o.i * wv[i];
+#pragma unroll
+      for (int j = 0; j < D; ++j) db[i][j] = o.dp[2 + j];
+    };
     float b_sums[3] = {0.0f, 0.0f, 0.0f};  // pass 1: the lobe and the Gram sums of b
 #pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-      const brdf::LobeOut<L> o = brdf::lobe_full<L>(av[k], p, pt);
-      bw[k] = o.i * wv[k];
-#pragma unroll
-      for (int j = 0; j < D; ++j) db[k][j] = o.dp[2 + j];
-      if (in_v[k]) {
-        b_sums[0] += aw[k] * bw[k];
-        b_sums[1] += bw[k] * bw[k];
-        b_sums[2] += bw[k] * yw[k];
+    for (int k = 0; k < n_slots; ++k) {
+      const int i = kLong ? 0 : k;
+      if constexpr (kLong) load(k, 0);
+      lobe_at(i);
+      if (in_v[i]) {
+        b_sums[0] += aw[i] * bw[i];
+        b_sums[1] += bw[i] * bw[i];
+        b_sums[2] += bw[i] * yw[i];
       }
     }
     group_sum(b_sums, S);
@@ -271,16 +307,21 @@ varpro_nd_kernel(const float* __restrict__ ang,   // (A, V, T)
 #pragma unroll
     for (int i = 0; i < 1 + 3 * D; ++i) r_sums[i] = 0.0f;
 #pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-      const float rw = yw[k] - kd * aw[k] - ks * bw[k];
-      if (in_v[k]) r_sums[0] += rw * rw;
+    for (int k = 0; k < n_slots; ++k) {
+      const int i = kLong ? 0 : k;
+      if constexpr (kLong) {
+        load(k, 0);
+        lobe_at(0);
+      }
+      const float rw = yw[i] - kd * aw[i] - ks * bw[i];
+      if (in_v[i]) r_sums[0] += rw * rw;
 #pragma unroll
       for (int j = 0; j < D; ++j) {
-        const float u = ks * db[k][j] * wv[k];
-        if (in_v[k]) {
+        const float u = ks * db[i][j] * wv[i];
+        if (in_v[i]) {
           r_sums[1 + j] += rw * u;
-          r_sums[1 + D + j] += u * aw[k];
-          r_sums[1 + 2 * D + j] += u * bw[k];
+          r_sums[1 + D + j] += u * aw[i];
+          r_sums[1 + 2 * D + j] += u * bw[i];
         }
       }
     }
@@ -301,18 +342,23 @@ varpro_nd_kernel(const float* __restrict__ ang,   // (A, V, T)
 #pragma unroll
     for (int i = 0; i < NH; ++i) hs[i] = 0.0f;
 #pragma unroll
-    for (int k = 0; k < VPL; ++k) {  // pass 3: the projected columns
+    for (int k = 0; k < n_slots; ++k) {  // pass 3: the projected columns
+      const int i = kLong ? 0 : k;
+      if constexpr (kLong) {
+        load(k, 0);
+        lobe_at(0);
+      }
       float col[D];
 #pragma unroll
       for (int j = 0; j < D; ++j) {
-        const float u = ks * db[k][j] * wv[k];
-        col[j] = u - x1[j] * aw[k] - x2[j] * bw[k];
+        const float u = ks * db[i][j] * wv[i];
+        col[j] = u - x1[j] * aw[i] - x2[j] * bw[i];
       }
-      if (in_v[k]) {
+      if (in_v[i]) {
 #pragma unroll
         for (int j = 0; j < D; ++j) {
 #pragma unroll
-          for (int i = j; i < D; ++i) hs[hidx<D>(j, i)] += col[j] * col[i];
+          for (int c = j; c < D; ++c) hs[hidx<D>(j, c)] += col[j] * col[c];
         }
       }
     }
@@ -379,25 +425,26 @@ varpro_nd_kernel(const float* __restrict__ ang,   // (A, V, T)
 using KernelFn = void (*)(const float*, const float*, const float*, const float*, float*, int,
                           int, int, GridArgs, SolveArgs);
 
-// the instantiation for VPL = vpl views a lane, or null past the lobe's budget
+// the instantiation for VPL = vpl views a lane in registers, or past the
+// lobe's budget the long-view path's (32 lanes a texel only)
 template <int L, int D, int VPL = 1>
-KernelFn kernel_for(int vpl) {
+KernelFn kernel_for(int vpl, int lanes) {
   if constexpr (VPL > max_vpl<L, D>()) {
-    return nullptr;
+    return lanes == 32 ? varpro_nd_kernel<L, D, 0> : nullptr;
   } else {
     if (vpl == VPL) return varpro_nd_kernel<L, D, VPL>;
-    return kernel_for<L, D, VPL + 1>(vpl);
+    return kernel_for<L, D, VPL + 1>(vpl, lanes);
   }
 }
 
-KernelFn pick_kernel(int lobe, int d, int vpl) {
+KernelFn pick_kernel(int lobe, int d, int vpl, int lanes) {
   switch (lobe) {
     case brdf::LOBE_COOK_TORRANCE_FRESNEL:
-      return d == 2 ? kernel_for<brdf::LOBE_COOK_TORRANCE_FRESNEL, 2>(vpl) : nullptr;
+      return d == 2 ? kernel_for<brdf::LOBE_COOK_TORRANCE_FRESNEL, 2>(vpl, lanes) : nullptr;
     case brdf::LOBE_WARD_ANISO:
-      return d == 3 ? kernel_for<brdf::LOBE_WARD_ANISO, 3>(vpl) : nullptr;
+      return d == 3 ? kernel_for<brdf::LOBE_WARD_ANISO, 3>(vpl, lanes) : nullptr;
     case brdf::LOBE_COOK_TORRANCE_ANISO:
-      return d == 3 ? kernel_for<brdf::LOBE_COOK_TORRANCE_ANISO, 3>(vpl) : nullptr;
+      return d == 3 ? kernel_for<brdf::LOBE_COOK_TORRANCE_ANISO, 3>(vpl, lanes) : nullptr;
     default:
       return nullptr;
   }
@@ -417,7 +464,7 @@ extern "C" int brdf_varpro_nd_fit(int lobe, const float* ang, const float* y, co
   if (n_grid < 1 || n_grid > kMaxGrid || d < 2 || d > kMaxShape || T < 1 || V < 1 || !lanes_ok ||
       vpl < 1 || static_cast<long>(vpl) * lanes < V || static_cast<long>(vpl - 1) * lanes >= V)
     return static_cast<int>(cudaErrorInvalidValue);
-  const KernelFn kernel = pick_kernel(lobe, d, vpl);
+  const KernelFn kernel = pick_kernel(lobe, d, vpl, lanes);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   GridArgs grid;
   for (int i = 0; i < kMaxGrid; ++i)
@@ -448,8 +495,8 @@ extern "C" int brdf_varpro_nd_fit(int lobe, const float* ang, const float* y, co
 // SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at kThreads threads and no
 // shared memory), out[1] registers a thread, out[2] local memory bytes a
 // thread (stack and spills), out[3] threads a block.
-extern "C" int brdf_varpro_nd_occupancy(int lobe, int d, int vpl, int* out) {
-  const KernelFn kernel = pick_kernel(lobe, d, vpl);
+extern "C" int brdf_varpro_nd_occupancy(int lobe, int d, int vpl, int lanes, int* out) {
+  const KernelFn kernel = pick_kernel(lobe, d, vpl, lanes);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);

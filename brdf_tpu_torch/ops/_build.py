@@ -8,7 +8,8 @@ is rebuilt when any ``csrc`` source is newer than it. :func:`build_all`
 starts one ``nvcc`` per source, all at once. Every build runs with
 ``-Xptxas -v``; what the assembler said of each kernel (registers, spills)
 is kept in :data:`BUILD_LOGS` and read with :func:`ptxas_report`, and each
-build's wall seconds in :data:`BUILD_SECONDS`.
+build's wall seconds in :data:`BUILD_SECONDS`; :func:`sass` reads a built
+library's machine code back with ``cuobjdump``.
 
 Nothing here runs at import time: this module is imported on machines that
 have no ``nvcc`` and no GPU.
@@ -107,6 +108,25 @@ def ptxas_report(log: str) -> list[dict]:
         if m:
             entry["registers"] = int(m.group(1))
     return out
+
+
+def sass(lib: Path) -> dict[str, list[tuple[int, str]]]:
+    """``cuobjdump -sass`` of a built library (``build(name)``) → its kernels
+    by mangled name, each a list of (address, instruction) pairs."""
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    funcs: dict[str, list[tuple[int, str]]] = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2)))
+    return funcs
 
 
 def build(name: str) -> Path:

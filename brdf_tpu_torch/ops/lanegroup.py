@@ -3,8 +3,10 @@ and the fixed-order sum over its views that such a group computes.
 
 K1 (``ops/varpro.py``), K5 (``ops/lm.py``) and K8 (``ops/varpro_nd.py``)
 solve a texel with a group of S lanes of one warp, lane l holding views l,
-l + S, …; K6 and K7 (``ops/ne.py``) split a texel's views the same way over
-the W warps of a block. Each thread adds its views left to right from 0, and the partials
+l + S, … (K1 and K8 past their register layouts as 32 lanes that read their
+views from device memory, :func:`long_view_layout`); K6 and K7
+(``ops/ne.py``) split a texel's views the same way over the W warps of a
+block. Each thread adds its views left to right from 0, and the partials
 combine as a pairwise tree (an XOR butterfly, or a fold in shared memory).
 Their plain versions sum every view quantity with :func:`group_sum`, which
 repeats that order, so that kernel and plain version agree bit for bit on
@@ -25,6 +27,17 @@ def group_lanes(v: int, views_per_lane: int) -> int:
     while lanes < 32 and -(-v // lanes) > views_per_lane:
         lanes *= 2
     return lanes
+
+
+def long_view_layout(v: int, threads: int) -> tuple[int, int, int]:
+    """K1's and K8's long-view layout, past their register layouts: 32 lanes a
+    texel, lane l walking views l, l + 32, … (⌈v / 32⌉ of them, read from
+    device memory in every pass), ``threads // 32`` texels a block → ``(S,
+    VPL, block_t)``. It reads ``v`` and no texel count, so a texel's rows do
+    not depend on its batch."""
+    if v < 1:
+        raise ValueError(f"a texel has at least one view, got V={v}")
+    return 32, -(-v // 32), threads // 32
 
 
 def group_sum(x: torch.Tensor | Sequence[torch.Tensor], lanes: int, vpl: int) -> torch.Tensor:

@@ -578,11 +578,25 @@ def _shade_entries():
     lib.brdf_shade_fwd.argtypes = [i, p, p, p, i, i, p]
     lib.brdf_shade_bwd_params.argtypes = [i, p, p, p, p, i, i, p]
     lib.brdf_shade_bwd_angles.argtypes = [i, p, p, p, p, i, i, p]
+    lib.brdf_shade_bwd_params_occupancy.argtypes = [i, p]
     entries = {"fwd": lib.brdf_shade_fwd, "bwd_params": lib.brdf_shade_bwd_params,
-               "bwd_angles": lib.brdf_shade_bwd_angles}
+               "bwd_angles": lib.brdf_shade_bwd_angles,
+               "bwd_params_occupancy": lib.brdf_shade_bwd_params_occupancy}
     for fn in entries.values():
         fn.restype = ctypes.c_int
     return entries
+
+
+def shade_bwd_params_occupancy(model: str) -> dict:
+    """What K3 gets for ``model`` on the current card: resident blocks and
+    warps an SM, registers and local-memory bytes a thread (the CUDA
+    runtime's own figures)."""
+    res = (ctypes.c_int * 4)()
+    err = _shade_entries()["bwd_params_occupancy"](SHADING_KERNELS[model].lobe_id, res)
+    if err != 0:
+        raise RuntimeError(f"shade_bwd_params occupancy query failed with cudaError {err}")
+    return dict(blocks_per_sm=res[0], warps_per_sm=res[0] * res[3] // 32, registers=res[1],
+                local_bytes=res[2])
 
 
 def _shade_launch(kernel: str, model: str, out_shape, ang: torch.Tensor, *rest: torch.Tensor):

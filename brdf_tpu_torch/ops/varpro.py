@@ -22,7 +22,9 @@ each texel reads its inputs once and evaluates its lobe
 ``(grid + 1 + iters)`` times per view (see the note in ``csrc/varpro.cu``).
 
 K1 solves a texel with a group of S lanes, each holding VPL of its views
-(:func:`lane_layout`), and sums over views in that layout's fixed order
+(:func:`lane_layout`; past :func:`max_views` 32 lanes that read their views
+from device memory in every pass, :func:`kernel_layout`), and sums over views
+in that layout's fixed order
 (``ops/lanegroup.py::group_sum``): each lane's views left to right, then a
 pairwise tree over the lanes. The plain version sums in the same order, so
 the two agree bit for bit on the card; the Pallas kernel's ``jnp.sum``
@@ -41,7 +43,7 @@ import torch
 
 from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles
 from brdf_tpu_torch.ops import _build
-from brdf_tpu_torch.ops.lanegroup import group_lanes, group_sum
+from brdf_tpu_torch.ops.lanegroup import group_lanes, group_sum, long_view_layout
 from brdf_tpu_torch.ops.shading import SHADING_KERNELS
 from brdf_tpu_torch.solver.init import default_shape_grid
 from brdf_tpu_torch.solver.varpro import _SEPARABLE, VarProResult, _bvls2, sigma_domain
@@ -51,8 +53,8 @@ _TINY = 1e-30
 THREADS = 128
 # The view state a lane may hold, in floats: what a view gives alone (as
 # many floats as its angles), w, y·w, a·w, b·w and ∂b·w of each of its views
-# (csrc/varpro.cu kLaneStateFloats). Past 32 lanes of that the kernel has no
-# layout and the wrapper raises.
+# (csrc/varpro.cu kLaneStateFloats). Past 32 lanes of that the kernel runs
+# its long-view path, which reads the views from device memory in every pass.
 LANE_STATE_FLOATS = 64
 # Views a lane holds while a group of up to 32 lanes can take the views, by
 # angle channels: fewer mean more lanes a texel, and so more copies of the
@@ -125,10 +127,7 @@ def varpro_rows_plain(cfg: VarProConfig, ang, y, w, sig0, iters: int) -> torch.T
     one = torch.ones_like(y[:1])
     zero = torch.zeros_like(one)
     l0, u0, l1, u1 = cfg.box
-    a_count, v = ang.shape[0], ang.shape[1]
-    # the kernel's order; past its largest view count (where it raises) 32
-    # lanes of ⌈V/32⌉ views, so the plain version takes any V
-    lanes, vpl = lane_layout(a_count, v)[:2] if v <= max_views(a_count) else (32, -(-v // 32))
+    lanes, vpl, _ = kernel_layout(ang.shape[0], ang.shape[1])
 
     def rsum(x):
         return group_sum(x, lanes, vpl)
@@ -207,7 +206,7 @@ def varpro_rows_plain(cfg: VarProConfig, ang, y, w, sig0, iters: int) -> torch.T
 
 
 def max_views(n_angles: int) -> int:
-    """The most views K1 takes: 32 lanes a texel, each within
+    """The most views K1 holds in registers: 32 lanes a texel, each within
     ``LANE_STATE_FLOATS`` of view state (``n_angles + 5`` floats a view)."""
     return 32 * (LANE_STATE_FLOATS // (n_angles + 5))
 
@@ -218,14 +217,25 @@ def lane_layout(n_angles: int, v: int) -> tuple[int, int, int]:
     views a lane (lane l holds views l, l + S, …), ``block_t`` = 128 / S
     texels a block. S is the smallest that gives a lane at most
     ``VIEWS_PER_LANE_BY_ANGLES[n_angles]`` views, or 32; past
-    :func:`max_views` it raises. It reads no texel count, so a texel's rows
-    do not depend on its batch. There is no fallback."""
+    :func:`max_views` the views do not fit registers and it raises (K1 runs
+    them on its long-view path, :func:`kernel_layout`). It reads no texel
+    count, so a texel's rows do not depend on its batch."""
     if not 1 <= v <= max_views(n_angles):
         raise ValueError(
             f"V={v} views do not fit the fused VarPro kernel's registers "
             f"(1 to {max_views(n_angles)} views for {n_angles + 5} floats a view)")
     lanes = group_lanes(v, VIEWS_PER_LANE_BY_ANGLES[n_angles])
     return lanes, -(-v // lanes), THREADS // lanes
+
+
+def kernel_layout(n_angles: int, v: int) -> tuple[int, int, int]:
+    """The layout K1 runs ``v`` views in, for the wrapper and the plain
+    version alike: :func:`lane_layout` (views in registers) up to
+    :func:`max_views`, the long-view path's
+    :func:`~brdf_tpu_torch.ops.lanegroup.long_view_layout` past it."""
+    if v > max_views(n_angles):
+        return long_view_layout(v, THREADS)
+    return lane_layout(n_angles, v)
 
 
 @functools.lru_cache(maxsize=None)
@@ -239,7 +249,7 @@ def _entry():
     ]
     fn.restype = ctypes.c_int
     occ = lib.brdf_varpro_occupancy
-    occ.argtypes = [i, i, p]
+    occ.argtypes = [i, i, i, p]
     occ.restype = ctypes.c_int
     return fn, occ
 
@@ -249,9 +259,9 @@ def occupancy(model: str, v: int) -> dict:
     current card: its layout, resident blocks and warps an SM, registers and
     local-memory bytes a thread (the CUDA runtime's own figures)."""
     spec = SHADING_KERNELS[model]
-    lanes, vpl, block_t = lane_layout(len(spec.angle_names), v)
+    lanes, vpl, block_t = kernel_layout(len(spec.angle_names), v)
     res = (ctypes.c_int * 4)()
-    err = _entry()[1](spec.lobe_id, vpl, res)
+    err = _entry()[1](spec.lobe_id, vpl, lanes, res)
     if err != 0:
         raise RuntimeError(f"K1 occupancy query failed with cudaError {err}")
     return dict(lanes=lanes, views_per_lane=vpl, block_t=block_t, blocks_per_sm=res[0],
@@ -273,9 +283,10 @@ def varpro_rows_cuda(cfg: VarProConfig, ang, y, w, sig0, iters: int) -> torch.Te
         raise ValueError(f"K1 shapes: ang {tuple(ang.shape)}, y {tuple(y.shape)}, w {tuple(w.shape)}")
     if sig0 is not None and sig0.shape != (t,):
         raise ValueError(f"K1 takes a (T,) sigma start, got {tuple(sig0.shape)}")
-    if t >= 2**31 // 8:
-        raise ValueError(f"K1 indexes texels with 32-bit ints; T={t} is too large")
-    lanes, vpl, _ = lane_layout(a_count, v)
+    if t >= 2**31 // 8 or v > 2**31 - 32:
+        raise ValueError(f"K1 indexes texels and views with 32-bit ints; "
+                         f"T={t}, V={v} is too large")
+    lanes, vpl, _ = kernel_layout(a_count, v)
     out = torch.empty((8, t), dtype=torch.float32, device=ang.device)
     if t == 0:
         return out

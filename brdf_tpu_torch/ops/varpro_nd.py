@@ -25,7 +25,9 @@ on. For CUDA tensors it launches K8 (and counts the launch in
 back from one to the other.
 
 K8 solves a texel with a group of S lanes, each holding VPL of its views
-(:func:`lane_layout`), and sums over views in that layout's fixed order
+(:func:`lane_layout`; past :func:`max_views` 32 lanes that read their views
+from device memory in every pass, :func:`kernel_layout`), and sums over views
+in that layout's fixed order
 (``ops/lanegroup.py::group_sum``): each lane's views left to right, then a pairwise tree
 over the lanes. The plain version sums in the same order, so the two agree
 bit for bit on the card; the Pallas kernel's ``jnp.sum`` order is XLA's, and
@@ -43,7 +45,7 @@ import torch
 
 from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles
 from brdf_tpu_torch.ops import _build
-from brdf_tpu_torch.ops.lanegroup import group_lanes, group_sum
+from brdf_tpu_torch.ops.lanegroup import group_lanes, group_sum, long_view_layout
 from brdf_tpu_torch.ops.shading import SHADING_KERNELS
 from brdf_tpu_torch.solver.init import default_shape_grid
 from brdf_tpu_torch.solver.varpro import (
@@ -62,7 +64,8 @@ MAX_GRID = 32
 THREADS = 128
 # The view state a lane may hold, in floats: angles, w, y·w, a·w, b·w and the
 # d ∂b/∂shape_j of each of its views (csrc/varpro_nd.cu kLaneStateFloats).
-# Past 32 lanes of that the kernel has no layout and the wrapper raises.
+# Past 32 lanes of that the kernel runs its long-view path, which reads the
+# views from device memory in every pass.
 LANE_STATE_FLOATS = 64
 # Views a lane holds while a group of up to 32 lanes can take the views:
 # fewer mean more lanes a texel, and so more copies of the scalar solve; more
@@ -130,7 +133,7 @@ def varpro_nd_rows_plain(cfg: VarProNDConfig, ang, y, w, p0_rows, iters: int) ->
     zero = torch.zeros_like(one)
     l0, u0, l1, u1 = cfg.box
     span = cfg.span
-    lanes, vpl, _ = lane_layout(ang.shape[0], d, ang.shape[1])
+    lanes, vpl, _ = kernel_layout(ang.shape[0], d, ang.shape[1])
 
     def rsum(x):
         return group_sum(x, lanes, vpl)
@@ -217,7 +220,7 @@ def varpro_nd_rows_plain(cfg: VarProNDConfig, ang, y, w, p0_rows, iters: int) ->
 
 
 def max_views(n_angles: int, d: int) -> int:
-    """The most views K8 takes: 32 lanes a texel, each within
+    """The most views K8 holds in registers: 32 lanes a texel, each within
     ``LANE_STATE_FLOATS`` of view state (``n_angles + 4 + d`` floats a view)."""
     return 32 * (LANE_STATE_FLOATS // (n_angles + 4 + d))
 
@@ -227,13 +230,24 @@ def lane_layout(n_angles: int, d: int, v: int) -> tuple[int, int, int]:
     (a power of two that divides 32), VPL = ⌈v / S⌉ views a lane (lane l holds
     views l, l + S, …), ``block_t`` = 128 / S texels a block. S is the
     smallest that gives a lane at most ``VIEWS_PER_LANE`` views, or 32; past
-    :func:`max_views` it raises. There is no fallback."""
+    :func:`max_views` the views do not fit registers and it raises (K8 runs
+    them on its long-view path, :func:`kernel_layout`)."""
     if not 1 <= v <= max_views(n_angles, d):
         raise ValueError(
             f"V={v} views do not fit the fused d-D VarPro kernel's registers "
             f"(1 to {max_views(n_angles, d)} views for {n_angles + 4 + d} floats a view)")
     lanes = group_lanes(v, VIEWS_PER_LANE)
     return lanes, -(-v // lanes), THREADS // lanes
+
+
+def kernel_layout(n_angles: int, d: int, v: int) -> tuple[int, int, int]:
+    """The layout K8 runs ``v`` views in, for the wrapper and the plain
+    version alike: :func:`lane_layout` (views in registers) up to
+    :func:`max_views`, the long-view path's
+    :func:`~brdf_tpu_torch.ops.lanegroup.long_view_layout` past it."""
+    if v > max_views(n_angles, d):
+        return long_view_layout(v, THREADS)
+    return lane_layout(n_angles, d, v)
 
 
 @functools.lru_cache(maxsize=None)
@@ -244,7 +258,7 @@ def _entry():
     fn.argtypes = [i, p, p, p, p, p, i, i, i, i, p, i, i, f, f, f, f, p, p, f, f, f, i, p]
     fn.restype = ctypes.c_int
     occ = lib.brdf_varpro_nd_occupancy
-    occ.argtypes = [i, i, i, p]
+    occ.argtypes = [i, i, i, i, p]
     occ.restype = ctypes.c_int
     return fn, occ
 
@@ -255,9 +269,9 @@ def occupancy(model: str, v: int) -> dict:
     local-memory bytes a thread (the CUDA runtime's own figures)."""
     spec = SHADING_KERNELS[model]
     d = spec.n_params - 2
-    lanes, vpl, block_t = lane_layout(len(spec.angle_names), d, v)
+    lanes, vpl, block_t = kernel_layout(len(spec.angle_names), d, v)
     res = (ctypes.c_int * 4)()
-    err = _entry()[1](spec.lobe_id, d, vpl, res)
+    err = _entry()[1](spec.lobe_id, d, vpl, lanes, res)
     if err != 0:
         raise RuntimeError(f"K8 occupancy query failed with cudaError {err}")
     return dict(lanes=lanes, views_per_lane=vpl, block_t=block_t, blocks_per_sm=res[0],
@@ -279,9 +293,10 @@ def varpro_nd_rows_cuda(cfg: VarProNDConfig, ang, y, w, p0_rows, iters: int) -> 
         raise ValueError(f"K8 shapes: ang {tuple(ang.shape)}, y {tuple(y.shape)}, w {tuple(w.shape)}")
     if p0_rows is not None and p0_rows.shape != (spec.n_params, t):
         raise ValueError(f"K8 takes a ({spec.n_params}, T) start, got {tuple(p0_rows.shape)}")
-    if t >= 2**31 // 16:
-        raise ValueError(f"K8 indexes texels with 32-bit ints; T={t} is too large")
-    lanes, vpl, _ = lane_layout(a_count, cfg.d, v)
+    if t >= 2**31 // 16 or v > 2**31 - 32:
+        raise ValueError(f"K8 indexes texels and views with 32-bit ints; "
+                         f"T={t}, V={v} is too large")
+    lanes, vpl, _ = kernel_layout(a_count, cfg.d, v)
     out = torch.empty((16, t), dtype=torch.float32, device=ang.device)
     if t == 0:
         return out

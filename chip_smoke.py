@@ -13,8 +13,8 @@ per source, in parallel), then:
    and with a start ``p0`` and without and with a weight mask on 4 views;
    then each lobe at T=517 with V = 1, 5, 30, 37, 100, its largest and the
    first V of every (S, VPL) ``lane_layout`` picks (every group width and
-   instantiation); one view past the largest raises; every instantiation
-   picked below 32 lanes a texel gets at least 20 warps an SM;
+   instantiation); every instantiation picked below 32 lanes a texel gets at
+   least 20 warps an SM;
 3. checks the bench row's quality gates (blinn_phong, k=6, grid 8):
    recovery ≥ 0.97 and χ² p99 ≤ 1e-6;
 4. drives the port's main path, ``fit_per_texel``, on 131072 texels × 3
@@ -55,22 +55,26 @@ per source, in parallel), then:
     parameter cotangents, angle cotangents) against their plain versions on
     all ten lobes with full-range cosines: cook_torrance at 1048576 × 16,
     ward_aniso at 393216 × 16, the rest at 16384 × 16, an odd T, a V=600
-    case and three with cosines exactly on the clamp edges -1, 0 and 1; and the autograd wiring of ``shade`` (K3 and K4 launched exactly
-    when the caller asks for that gradient);
+    case, every lobe at T=517 with V = 1, 5, 37 and 384, and three with
+    cosines exactly on the clamp edges -1, 0 and 1; and the autograd wiring
+    of ``shade`` (K3 and K4 launched exactly when the caller asks for that
+    gradient);
 13. drives the serve path at full width: an icosphere of 81920 faces seen by
     a 1024 × 1024 camera under the 16-LED rig, ``relight`` under all 16 LEDs
     and a ``render_turntable`` of 12 frames at 512 × 512, then one gradient of
     a fit loss through ``shade`` at 1048576 × 16 to parameters and angles;
     counts K2, K3 and K4's launches and holds every result against the same
-    call through the plain versions, and ``engine="xla"`` against K2;
+    call through the plain versions, and ``engine="xla"`` against K2; the
+    warm gradient step's wall time and K3's share of its device time;
 14. closes the loop on the card: renders that scene's 16 LED views from known
     per-face parameters, ``build_face_problem`` → ``fit_per_texel`` (K5) →
     ``render_image`` from the fit (view-0 RMS < 0.02, converged > 0.97), and
     the same at pixel granularity (``build_pixel_problem`` at stride 2 →
     ``render_pixel_fit``);
-15. times K2, K3, K4 (CUDA events) with their byte bounds, and splits the
-    wall time of ``relight`` and of one turntable frame into rasterize,
-    gather, device and copy back;
+15. times K2, K3, K4 (CUDA events) with their byte bounds, K3 also with its
+    registers, warps an SM, SASS instructions a (view, texel) pair and its
+    issue floor, and splits the wall time of ``relight`` and of one
+    turntable frame into rasterize, gather, device and copy back;
 16. holds the normal-equation kernels K6 (``csrc/ne.cu``) and K7
     (``csrc/joint_ne.cu``) against their plain versions in all three modes:
     K6 on all ten lobes, weighted and unweighted (cook_torrance at
@@ -101,7 +105,6 @@ per source, in parallel), then:
     at 393216 × 16, cook_torrance_fresnel at 16384 × 16, with the grid and
     from a start, iters 0 and 16, with 4 views masked, T=517 with V=37, and
     one case for each further lane layout (V = 1, 2 and each lobe's largest);
-    one view past the largest raises;
 22. drives the VarPro main path of the m ≥ 4 lobes, ``fit_per_texel(engine=
     "varpro")`` on 131072 texels × 3 channels × 16 views with huber rounds:
     ward_aniso in the timber-aniso box and cook_torrance_aniso, counting K8's
@@ -116,7 +119,12 @@ per source, in parallel), then:
 23. times K8 (CUDA events) at round 0 of both fits with its bound, lane
     layout, warps an SM, registers and spills, and at three layouts on the
     same inputs; and the warm fits' device and host profile;
-24. prints one JSON line of every ported kernel (K0–K8), then the card line,
+24. holds K1 and K8 on their long-view path (past their register layouts:
+    32 lanes a texel, the views read from device memory in every pass)
+    against their plain versions: every lobe at T=517 with the first V past
+    its register layout and with 400 views; and times one call of each at
+    65536 × 400;
+25. prints one JSON line of every ported kernel (K0–K8), then the card line,
     then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and the script exits non-zero without the ``ok`` line.
@@ -128,6 +136,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -300,7 +309,7 @@ def cuda_ms(fn, reps: int) -> float:
 def k1_compare(name: str, out_k: torch.Tensor, out_p: torch.Tensor, errs: list[float]) -> dict:
     """Every output row lane for lane; the bar is equality."""
     check(torch.isfinite(out_k).all(), f"K1 {name}: non-finite output")
-    res = dict(lane_share=float(same(out_k, out_p).all(0).double().mean()),
+    res = dict(lane_share=share_of(same(out_k, out_p).all(0)),
                max_abs_err=float(torch.nan_to_num(out_k - out_p).abs().max()))
     errs.append(res["max_abs_err"])
     log(f"K1 parity {name}: lanes equal {res['lane_share']:.6f} max|d| {res['max_abs_err']:.3g}")
@@ -386,13 +395,6 @@ def phase_parity(errs: list[float]) -> dict:
                 name = f"{model}/T={T_ODD}/V={v}/layout={layout}/p0={int(with_p0)}"
                 cases[name] = k1_compare(name, out_k, k1.varpro_rows_plain(cfg, *inputs, iters=16),
                                          errs)
-        ang, target, _ = make_problem(rng, 64, v_max + 1, model)
-        try:
-            k1.varpro_rows_cuda(cfg, *k1.stack_inputs(model, ang, target), iters=1)
-        except ValueError:
-            pass
-        else:
-            check(False, f"{model}: K1 took V={v_max + 1} views, past its largest")
     return cases
 
 
@@ -644,6 +646,13 @@ def same(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a == b) | (torch.isnan(a) & torch.isnan(b))
 
 
+def share_of(mask: torch.Tensor) -> float:
+    """The share of True in a boolean tensor, as a count over the size: 1.0
+    exactly when every element is True (a device mean of the mask as float64
+    can round N · (1/N) below 1); NaN for an empty one."""
+    return int(mask.sum()) / mask.numel() if mask.numel() else float("nan")
+
+
 def true_lm_params(rng: np.random.Generator, t: int, model: str) -> np.ndarray:
     """Per-texel parameters inside each lobe's box."""
     kd, ks = rng.uniform(0.1, 0.9, t), rng.uniform(0.2, 1.0, t)
@@ -707,7 +716,7 @@ def phase_k0(errs: list[float]) -> dict:
         ref = k0.shading_eval_plain(model, a_st, prm)
         shares, err = [], 0.0
         for g, r in zip(got, ref):
-            shares.append(float(same(g, r).double().mean()))
+            shares.append(share_of(same(g, r)))
             err = max(err, float(torch.nan_to_num(g - r).abs().max()))
         errs.append(err)
         out[model] = dict(texels=t, value_share=shares[0], dparams_share=shares[1],
@@ -769,11 +778,11 @@ def reopen(rows: torch.Tensor) -> torch.Tensor:
 def k5_compare(name: str, out_k: torch.Tensor, out_p: torch.Tensor, errs: list[float]) -> dict:
     """Stop codes and iteration counts first, then parameters, then χ²."""
     res = dict(
-        stop_share=float((out_k[7] == out_p[7]).double().mean()),
-        iters_share=float((out_k[6] == out_p[6]).double().mean()),
-        param_share=float(same(out_k[:5], out_p[:5]).all(0).double().mean()),
-        chi2_share=float(same(out_k[5], out_p[5]).double().mean()),
-        state_share=float(same(out_k[8:11], out_p[8:11]).all(0).double().mean()),
+        stop_share=share_of(out_k[7] == out_p[7]),
+        iters_share=share_of(out_k[6] == out_p[6]),
+        param_share=share_of(same(out_k[:5], out_p[:5]).all(0)),
+        chi2_share=share_of(same(out_k[5], out_p[5])),
+        state_share=share_of(same(out_k[8:11], out_p[8:11]).all(0)),
         max_abs_err=float(torch.nan_to_num(out_k[:6] - out_p[:6]).abs().max()),
         iters_mean=float(out_k[6].mean()), iters_max=float(out_k[6].max()),
         stops=torch.bincount(out_k[7].long(), minlength=8).tolist(),
@@ -830,10 +839,10 @@ def k5_cases(model: str, inputs, name: str, errs: list[float], cases: dict) -> N
         # a resumed solve is the uninterrupted one: same state, iterations add up
         cut = first_k[7] == 3.0
         rows = [0, 1, 2, 3, 4, 5, 7, 9, 10]
-        res["resume_share"] = float(same(warm_k[rows], one_k[rows]).all(0).double().mean())
+        res["resume_share"] = share_of(same(warm_k[rows], one_k[rows]).all(0))
         its = torch.where(cut, first_k[6] + warm_k[6], first_k[6])
-        res["resume_iters_share"] = float((its == one_k[6]).double().mean())
-        res["lanes_resumed"] = float(cut.double().mean())
+        res["resume_iters_share"] = share_of(its == one_k[6])
+        res["lanes_resumed"] = share_of(cut)
         log(f"K5 resume {case}: {res['lanes_resumed']:.4f} of lanes resumed, equal to one run on "
             f"{res['resume_share']:.6f}, iterations add up on {res['resume_iters_share']:.6f}")
         check(res["resume_share"] == 1.0 and res["resume_iters_share"] == 1.0,
@@ -936,10 +945,10 @@ def report_share(rep, ref) -> dict:
     """Two fit reports lane for lane: stop codes, iterations, parameters, χ²."""
     a, b = rep.result, ref.result
     return dict(
-        stop_share=float((a.stop == b.stop).double().mean()),
-        iters_share=float((a.iters == b.iters).double().mean()),
-        param_share=float(same(a.p, b.p).all(-1).double().mean()),
-        chi2_share=float(same(a.chi2, b.chi2).double().mean()),
+        stop_share=share_of(a.stop == b.stop),
+        iters_share=share_of(a.iters == b.iters),
+        param_share=share_of(same(a.p, b.p).all(-1)),
+        chi2_share=share_of(same(a.chi2, b.chi2)),
         max_abs_err=float(torch.nan_to_num(a.p - b.p).abs().max()),
     )
 
@@ -1160,7 +1169,7 @@ def phase_lm_timing(problems: dict, gates_row) -> dict:
         compacted_chi2_median=float(compacted.chi2.median()),
         fused_iters_mean=float(fused.iters.double().mean()),
         compacted_iters_mean=float(compacted.iters.double().mean()),
-        same_result_share=float(same(compacted.p, fused.p).all(-1).double().mean()))
+        same_result_share=share_of(same(compacted.p, fused.p).all(-1)))
     log(f"K5 lm_fit_compacted against lm_fit_fused: {res['compacted-timber-aniso']}")
     k5.LAUNCHES = saved                          # timing launches are not the main path's
     return res
@@ -1171,6 +1180,7 @@ def phase_lm_timing(problems: dict, gates_row) -> dict:
 # --------------------------------------------------------------------------
 
 SHADE_KERNELS = ("fwd", "bwd_params", "bwd_angles")
+SHADE_ODD_VIEWS = (1, 5, 37, 384)
 SHADE_CUDA = {"fwd": "shade_fwd_cuda", "bwd_params": "shade_bwd_params_cuda",
               "bwd_angles": "shade_bwd_angles_cuda"}
 
@@ -1236,6 +1246,29 @@ def run_shade(kernel: str, model: str, ang, prm, ct, plain: bool = False):
     return fns[kernel](model, ang, prm) if kernel == "fwd" else fns[kernel](model, ang, prm, ct)
 
 
+def view_loop(instrs: list[tuple[int, str]], loads_a_view: int) -> dict:
+    """A view loop in a kernel's SASS (``_build.sass``): the backward branch
+    with the most global loads in its span. Its static length over the views
+    it covers (its loads over the ``loads_a_view`` each view makes) is the
+    instructions a (view, texel) pair issues, counting the short branches
+    around the IEEE divides' and roots' slow paths, which seldom run."""
+    addr = {a: i for i, (a, _) in enumerate(instrs)}
+    best = None
+    for i, (a, ins) in enumerate(instrs):
+        m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", ins)
+        if not m or int(m.group(1), 16) >= a or int(m.group(1), 16) not in addr:
+            continue
+        span = instrs[addr[int(m.group(1), 16)]:i + 1]
+        ldg = sum(1 for _, s in span if re.search(r"\bLDG\b", s))
+        if best is None or ldg > best["ldg"]:
+            best = dict(instructions=len(span), ldg=ldg)
+    if best is None or best["ldg"] == 0:
+        return dict(instructions=None, views=None, per_pair=None)
+    views = best["ldg"] / loads_a_view
+    return dict(instructions=best["instructions"], views=views,
+                per_pair=best["instructions"] / views)
+
+
 def phase_shade_parity(errs: dict) -> dict:
     """K2, K3 and K4 against their plain versions on identical inputs on the
     card. They run the same lobes.cuh code as K0 under -fmad=false and K3 sums
@@ -1245,6 +1278,9 @@ def phase_shade_parity(errs: dict) -> dict:
     cases = [(model, {"cook_torrance": T_SHADE, "ward_aniso": T_BENCH * CHANNELS}.get(model, T_SMALL),
               V, False) for model in ALL_LOBES]
     cases += [("blinn_phong", 517, V, False), ("cook_torrance", 300, 600, False)]
+    # K3's view loop at ragged view counts: one view, a few, past 32, and the
+    # chunked tier's 384, each at an odd T
+    cases += [(model, T_ODD, v, False) for v in SHADE_ODD_VIEWS for model in ALL_LOBES]
     cases += [(model, T_SMALL, V, True) for model in ("oren_nayar", "cook_torrance", "ward_aniso")]
     out = {}
     for model, t, v, edges in cases:
@@ -1256,11 +1292,11 @@ def phase_shade_parity(errs: dict) -> dict:
             torch.cuda.synchronize()
             ref = run_shade(kernel, model, ang, prm, ct, plain=True)
             check(got.shape == ref.shape, f"{name}: {kernel} shape {tuple(got.shape)}")
-            share = float(same(got, ref).double().mean())
+            share = share_of(same(got, ref))
             err = float(torch.nan_to_num(got - ref).abs().max())
             errs[kernel].append(err)
             out[name][kernel] = dict(share=share, max_abs_err=err,
-                                     nan_share=float(torch.isnan(got).double().mean()))
+                                     nan_share=share_of(torch.isnan(got)))
             check(share == 1.0, f"{name}: shade_{kernel} and its plain version differ ({share})")
             del got, ref
         log(f"K2-K4 parity {name}: " + " ".join(
@@ -1299,7 +1335,7 @@ def phase_shade_autograd(errs: dict) -> dict:
             ref.append(k0.shade_bwd_params_plain(model, ang_vt, prm, ct).T)
         if want != "params":
             ref.extend(x.T for x in k0.shade_bwd_angles_plain(model, ang_vt, prm, ct))
-        share = min(float(same(g, r).double().mean()) for g, r in zip(grads, ref))
+        share = min(share_of(same(g, r)) for g, r in zip(grads, ref))
         err = max(float(torch.nan_to_num(g - r).abs().max()) for g, r in zip(grads, ref))
         errs["bwd_params" if want == "params" else "bwd_angles"].append(err)
         out[want] = dict(launches=used, share=share, max_abs_err=err, loss=float(loss.detach()))
@@ -1427,11 +1463,11 @@ def phase_serve(errs: dict) -> tuple[dict, dict, tuple]:
         check(shade_counts() == before, "the plain stand-ins must not count as launches")
     as_t = torch.from_numpy
     shares = dict(
-        relight=float(same(as_t(relit), as_t(relit_ref)).double().mean()),
-        turntable=float(same(as_t(frames), as_t(frames_ref)).double().mean()),
-        loss=float(same(grads[0], grads_ref[0]).double().mean()),
-        grad_params=float(same(grads[1], grads_ref[1]).double().mean()),
-        grad_angles=min(float(same(g, r).double().mean()) for g, r in zip(grads[2:], grads_ref[2:])),
+        relight=share_of(same(as_t(relit), as_t(relit_ref))),
+        turntable=share_of(same(as_t(frames), as_t(frames_ref))),
+        loss=share_of(same(grads[0], grads_ref[0])),
+        grad_params=share_of(same(grads[1], grads_ref[1])),
+        grad_angles=min(share_of(same(g, r)) for g, r in zip(grads[2:], grads_ref[2:])),
     )
     errs["fwd"].append(float(np.abs(relit - relit_ref).max()))
     errs["fwd"].append(float(np.abs(frames - frames_ref).max()))
@@ -1454,7 +1490,7 @@ def phase_serve(errs: dict) -> tuple[dict, dict, tuple]:
     torch.cuda.synchronize()
     off = (by_kernel - by_lobe).abs() - (XLA_ATOL + XLA_RTOL * by_lobe.abs())
     xla = dict(max_abs_diff=float((by_kernel - by_lobe).abs().max()),
-               share_within=float((off <= 0).double().mean()), rtol=XLA_RTOL, atol=XLA_ATOL)
+               share_within=share_of(off <= 0), rtol=XLA_RTOL, atol=XLA_ATOL)
     log(f"engine='xla' against K2 on {n_px} pixels x {CHANNELS} x {len(scene.lights)} lights: {xla}")
     check(xla["share_within"] == 1.0, f"engine='xla' and K2 disagree: {xla}")
     del by_kernel, by_lobe
@@ -1486,7 +1522,13 @@ def phase_serve(errs: dict) -> tuple[dict, dict, tuple]:
                              steps=serve_split(model, scene.mesh, cam_t, params, faces, headlight)),
     )
     profile = warm_profile(lambda: prender.render_pixels(model, *args), "shade_fwd_kernel")
+    # the warm gradient step: its wall time and the share of its device time
+    # that K3 takes (K2, K4 and the loss's elementwise kernels are the rest)
+    step_profile = warm_profile(gradient_step, "shade_bwd_params")
     k0.SHADE_LAUNCHES.update(saved)              # timing launches are not the main path's
+    log(f"gradient step warm {step_profile['wall_ms_median']:.2f} ms, K3 "
+        f"{step_profile['fused_kernel_device_ms']:.4f} ms of {step_profile['device_busy_ms']:.3f} "
+        f"ms device time")
     log(f"relight warm {wall['relight']['wall_ms_median']:.1f} ms {wall['relight']['steps']}; "
         f"turntable frame warm {wall['turntable_frame']['wall_ms_median']:.1f} ms "
         f"{wall['turntable_frame']['steps']}")
@@ -1494,7 +1536,7 @@ def phase_serve(errs: dict) -> tuple[dict, dict, tuple]:
                covered_pixels=n_px, coverage=float(cov.mean()), lights=len(scene.lights),
                rasterizer="native", launches=launches, vs_plain=shares, engine_xla=xla,
                wall=wall, render_pixels_warm=profile,
-               gradient_step=dict(texels=T_SHADE, views=V))
+               gradient_step=dict(texels=T_SHADE, views=V, warm=step_profile))
     relight_shape = (model, n_px * CHANNELS, len(scene.lights))
     return launches, out, relight_shape
 
@@ -1570,13 +1612,39 @@ def phase_closed_loop() -> dict:
     return out
 
 
+def sm_clock_max_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
+
+
+def k3_issue(model: str) -> dict:
+    """K3's instantiation for ``model``: registers and warps an SM (the CUDA
+    runtime's), and the SASS instructions a (view, texel) pair issues in its
+    view loop (``view_loop``, static count)."""
+    occ = k0.shade_bwd_params_occupancy(model)
+    spec = k0.SHADING_KERNELS[model]
+    funcs = _build.sass(_build.build("shade"))
+    name = next(n for n in funcs if "shade_bwd_params" in n and f"ILi{spec.lobe_id}E" in n)
+    loop = view_loop(funcs[name], len(spec.angle_names) + 1)
+    return dict(registers=occ["registers"], warps_per_sm=occ["warps_per_sm"],
+                local_bytes=occ["local_bytes"], sass_per_pair=loop["per_pair"],
+                sass_loop=loop["instructions"], loop_views=loop["views"])
+
+
 def phase_shade_timing(relight_shape) -> dict:
     """K2, K3 and K4 per launch (CUDA events; 20 back-to-back launches, median
     of 3 runs) and their plain versions (2 launches) on the shading batch
     (cook_torrance, 1048576 × 16) and on the relight call's own shape, each
-    with its bound: bytes at 3.35 TB/s against operations at 67 TFLOP/s."""
+    with its bound: bytes at 3.35 TB/s against operations at 67 TFLOP/s. K3
+    also with its registers, warps an SM, SASS instructions a pair and its
+    issue floor: instructions × pairs over 132 SMs × 4 schedulers × 32 lanes
+    × the SM's top clock."""
     rng = np.random.default_rng(51)
     saved = shade_counts()
+    lanes_per_s = (torch.cuda.get_device_properties(0).multi_processor_count * 4 * 32
+                   * sm_clock_max_hz())
     res = {}
     for key, (model, t, v) in (("shading_batch", ("cook_torrance", T_SHADE, V)),
                                ("relight_call", relight_shape)):
@@ -1592,6 +1660,9 @@ def phase_shade_timing(relight_shape) -> dict:
             res[key][kernel] = dict(ms=ms, plain_ms=plain_ms, bytes=nbytes[kernel],
                                     operations=ops[kernel], bound_ms=bound[by], bound_by=by,
                                     gbytes_per_s=nbytes[kernel] / (ms * 1e-3) / 1e9)
+        issue = k3_issue(model)
+        issue["issue_floor_ms"] = issue["sass_per_pair"] * t * v / lanes_per_s * 1e3
+        res[key]["bwd_params"].update(issue)
         log(f"K2-K4 timing {key}: {res[key]}")
         del ang, prm, ct
     k0.SHADE_LAUNCHES.update(saved)              # timing launches are not the main path's
@@ -1734,12 +1805,12 @@ def phase_ne_parity(errs: list[float]) -> dict:
                         torch.cuda.synchronize()
                         ref = k6.ne_rows_plain(model, mode, ang, y, weights, prm)
                     check(got.shape == ref.shape, f"{name}: {mode} rows {tuple(got.shape)}")
-                    share = float(same(got, ref).double().mean())
+                    share = share_of(same(got, ref))
                     err = float(torch.nan_to_num(got - ref).abs().max())
                     errs.append(err)
                     key = mode + ("/w" if weights is not None else "") + "@" + layout_key(layout)
                     out[name][key] = dict(share=share, max_abs_err=err,
-                                          nan_share=float(torch.isnan(got).double().mean()))
+                                          nan_share=share_of(torch.isnan(got)))
                     check(share == 1.0, f"{name}: K6 {key} and its plain version differ ({share})")
                     del got, ref
         chosen = {mode: layout_key(k6.ne_layout("ne", m, mode, v)) for mode in NE_MODES}
@@ -1810,7 +1881,7 @@ def phase_joint_ne_parity(errs: list[float]) -> dict:
                         ref = k6.joint_ne_rows_plain(base, mode, lv, y, w, p_rows, frame)
                     check(got.shape == ref.shape == (k6.ne_rows_count(9, mode), t),
                           f"{name}: {mode} rows {tuple(got.shape)}")
-                    share = float(same(got, ref).double().mean())
+                    share = share_of(same(got, ref))
                     err = float(torch.nan_to_num(got - ref).abs().max())
                     errs.append(err)
                     key = f"{mode}/{kind}@{layout_key(layout)}"
@@ -1862,7 +1933,7 @@ def phase_ne_autograd() -> dict:
     for name, v, g in (("fused", v_k, g_k), ("two_pass", v_2, g_2)):
         off = (g - g_x).abs() - (1e-2 + 1e-3 * g_x.abs())
         out[name] = dict(loss_rel=float((v - v_x).abs() / v_x.abs()),
-                         grad_share_within=float((off <= 0).double().mean()),
+                         grad_share_within=share_of(off <= 0),
                          grad_max_abs_diff=float((g - g_x).abs().max()))
         check(out[name]["loss_rel"] <= 1e-4 and out[name]["grad_share_within"] == 1.0,
               f"shading loss and gradient ({name}) against autograd of the eager lobe: {out[name]}")
@@ -1900,7 +1971,7 @@ def phase_ne_autograd() -> dict:
     v_k, g_k = joint_fused()
     off = (g_k - g_x).abs() - (1e-4 * g_x.abs().max() + 1e-2 * g_x.abs())
     joint = dict(loss_rel=float((v_k - v_x).abs() / v_x.abs()),
-                 grad_share_within=float((off <= 0).double().mean()),
+                 grad_share_within=share_of(off <= 0),
                  grad_max_abs=float(g_x.abs().max()), batch=[t, V],
                  ms=dict(fused=cuda_ms(joint_fused, reps=10),
                          autograd_eager=cuda_ms(joint_eager, reps=2)))
@@ -1916,10 +1987,10 @@ def phase_ne_autograd() -> dict:
 def fit_share(a, b) -> dict:
     """Two fit results lane for lane: stop codes, iterations, parameters, χ²."""
     return dict(
-        stop_share=float((a.stop == b.stop).double().mean()),
-        iters_share=float((a.iters == b.iters).double().mean()),
-        param_share=float(same(a.p, b.p).all(-1).double().mean()),
-        chi2_share=float(same(a.chi2, b.chi2).double().mean()),
+        stop_share=share_of(a.stop == b.stop),
+        iters_share=share_of(a.iters == b.iters),
+        param_share=share_of(same(a.p, b.p).all(-1)),
+        chi2_share=share_of(same(a.chi2, b.chi2)),
         max_abs_err=float(torch.nan_to_num(a.p - b.p).abs().max()),
     )
 
@@ -2023,9 +2094,9 @@ def phase_chunked_tier(errs: list[float]) -> tuple[int, dict]:
     counts = (r_f.stop == r_c.stop) & (r_f.iters == r_c.iters)
     close = ((r_c.p - r_f.p).abs() <= 1e-4 + 1e-3 * r_f.p.abs()).all(-1)
     follows = dict(model=model, texels=T_BENCH, views=V,
-                   counts_share=float(counts.double().mean()),
-                   param_share_where_counts_agree=float(close[counts].double().mean()),
-                   param_share=float(close.double().mean()),
+                   counts_share=share_of(counts),
+                   param_share_where_counts_agree=share_of(close[counts]),
+                   param_share=share_of(close),
                    chi2_median=[float(r_f.chi2.median()), float(r_c.chi2.median())],
                    warm_wall_ms=dict(
                        fused=warm_wall_ms(lambda: k5.lm_fit_fused(model, ang, target, p0, **kw)),
@@ -2195,7 +2266,7 @@ def phase_joint_main_path(errs: list[float]) -> tuple[int, dict, tuple]:
     both = (r_p.chi2 < 1e-9) & (r_x.chi2 < 1e-9)
     close = ((r_p.p - r_x.p).abs() <= 5e-3 + 5e-2 * r_x.p.abs()).all(-1)
     agree = dict(both_converged_share=float(both.double().mean()),
-                 param_share_on_both=float(close[both].double().mean()))
+                 param_share_on_both=share_of(close[both]))
     out["subset_pallas_vs_xla"] = agree
     check(float(r_p.chi2.median()) < 1e-9 and float(r_x.chi2.median()) < 1e-9
           and agree["both_converged_share"] > 0.8 and agree["param_share_on_both"] >= 0.95,
@@ -2504,7 +2575,7 @@ def nd_case(rng: np.random.Generator, model: str, t: int, v: int):
 
 def k8_compare(name: str, out_k: torch.Tensor, out_p: torch.Tensor, errs: list[float]) -> dict:
     """Every output row lane for lane; the bar is equality."""
-    res = dict(lane_share=float(same(out_k, out_p).all(0).double().mean()),
+    res = dict(lane_share=share_of(same(out_k, out_p).all(0)),
                max_abs_err=float(torch.nan_to_num(out_k - out_p).abs().max()))
     errs.append(res["max_abs_err"])
     log(f"K8 parity {name}: lanes equal {res['lane_share']:.6f} max|d| {res['max_abs_err']:.3g}")
@@ -2573,14 +2644,123 @@ def phase_k8_parity(errs: list[float]) -> dict:
             check(torch.isfinite(out_k).all(), f"{model}: non-finite K8 output at V={v}")
             name = f"{model}/T={T_ODD}/V={v}/layout={layout}/iters=16"
             cases[name] = k8_compare(name, out_k, k8.varpro_nd_rows_plain(cfg, *inputs, iters=16), errs)
-        ang, target, _ = nd_case(rng, model, 64, v_max + 1)
-        try:
-            k8.varpro_nd_rows_cuda(cfg, *k8.stack_inputs(model, ang, target), iters=1)
-        except ValueError:
-            pass
-        else:
-            check(False, f"{model}: K8 took V={v_max + 1} views, past its largest")
     return cases
+
+
+LONG_VIEWS = 400
+T_LONG_TIMED = 65536
+
+
+def phase_long_views(errs_k1: list[float], errs_k8: list[float]) -> dict:
+    """K1 and K8 past their register layouts, on their long-view path (32
+    lanes a texel, each view read from device memory in every pass), against
+    their plain versions on the card, every output row to equality: each
+    lobe at T=517 with the first V past its register layout and with 400
+    views, from the grid and from a start (K1 with a weight mask, iters 6;
+    K8 iters 16); no wrapper raises. Then one timed call of each at 65536
+    texels × 400 views from the grid (K1 cook_torrance, k=6; K8 ward_aniso,
+    k=16) with its bound, layout, warps an SM and registers; reported, not
+    targeted."""
+    rng = np.random.default_rng(91)
+    cases = {}
+    for model in ("blinn_phong", "phong", "cook_torrance", "ward"):
+        cfg = k1.config(model)
+        a_count = len(k0.SHADING_KERNELS[model].angle_names)
+        for v in (k1.max_views(a_count) + 1, LONG_VIEWS):
+            check(k1.kernel_layout(a_count, v)[0] == 32, f"K1 {model} at V={v}: not the long path")
+            ang, target, true_p = make_problem(rng, T_ODD, v, model)
+            weights = torch.tensor(rng.uniform(0.0, 1.0, (T_ODD, v)) > 0.2, dtype=torch.float32,
+                                   device=DEVICE)
+            p0 = torch.tensor(true_p, device=DEVICE)
+            for with_p0 in (False, True):
+                inputs = k1.stack_inputs(model, ang, target, weights, p0 if with_p0 else None)
+                out_k = k1.varpro_rows_cuda(cfg, *inputs, iters=6)
+                torch.cuda.synchronize()
+                name = f"K1/{model}/T={T_ODD}/V={v}/p0={int(with_p0)}"
+                cases[name] = k1_compare(name, out_k, k1.varpro_rows_plain(cfg, *inputs, iters=6),
+                                         errs_k1)
+    for model in ND_LOBES:
+        cfg = k8.config(model)
+        a_count = len(k0.SHADING_KERNELS[model].angle_names)
+        for v in (k8.max_views(a_count, cfg.d) + 1, LONG_VIEWS):
+            check(k8.kernel_layout(a_count, cfg.d, v)[0] == 32,
+                  f"K8 {model} at V={v}: not the long path")
+            ang, target, true_p = nd_case(rng, model, T_ODD, v)
+            p0 = torch.tensor(true_p, device=DEVICE)
+            for with_p0 in (False, True):
+                inputs = k8.stack_inputs(model, ang, target, None, p0 if with_p0 else None)
+                out_k = k8.varpro_nd_rows_cuda(cfg, *inputs, iters=16)
+                torch.cuda.synchronize()
+                check(torch.isfinite(out_k).all(), f"{model}: non-finite K8 output at V={v}")
+                name = f"K8/{model}/T={T_ODD}/V={v}/p0={int(with_p0)}"
+                cases[name] = k8_compare(name, out_k,
+                                         k8.varpro_nd_rows_plain(cfg, *inputs, iters=16), errs_k8)
+    timed = {}
+    ang, target, _ = make_problem(rng, T_LONG_TIMED, LONG_VIEWS, "cook_torrance")
+    cfg = k1.config("cook_torrance")
+    inputs = k1.stack_inputs("cook_torrance", ang, target)
+    ms = cuda_ms(lambda: k1.varpro_rows_cuda(cfg, *inputs, iters=6), reps=5)
+    occ = k1.occupancy("cook_torrance", LONG_VIEWS)
+    timed["K1/cook_torrance"] = dict(
+        ms=ms, texels=T_LONG_TIMED, views=LONG_VIEWS, iters=6,
+        layout=[occ["lanes"], occ["views_per_lane"], occ["block_t"]],
+        warps_per_sm=occ["warps_per_sm"], registers=occ["registers"],
+        local_bytes=occ["local_bytes"], **k1_bound("cook_torrance", cfg, inputs, 6))
+    del ang, target, inputs
+    ang, target, _ = nd_case(rng, "ward_aniso", T_LONG_TIMED, LONG_VIEWS)
+    cfg = k8.config("ward_aniso")
+    inputs = k8.stack_inputs("ward_aniso", ang, target)
+    ms = cuda_ms(lambda: k8.varpro_nd_rows_cuda(cfg, *inputs, iters=16), reps=5)
+    occ = k8.occupancy("ward_aniso", LONG_VIEWS)
+    timed["K8/ward_aniso"] = dict(
+        ms=ms, texels=T_LONG_TIMED, views=LONG_VIEWS, iters=16,
+        layout=[occ["lanes"], occ["views_per_lane"], occ["block_t"]],
+        warps_per_sm=occ["warps_per_sm"], registers=occ["registers"],
+        local_bytes=occ["local_bytes"],
+        **bound_of(k8_bytes("ward_aniso", T_LONG_TIMED, LONG_VIEWS, False),
+                   k8_operations("ward_aniso", T_LONG_TIMED, LONG_VIEWS, len(cfg.grid), 16,
+                                 False)))
+    del ang, target, inputs
+    log(f"long-view paths timed: {timed}")
+    return dict(parity=cases, timed=timed, switch=long_view_switch(rng))
+
+
+def long_view_switch(rng: np.random.Generator) -> dict:
+    """Each lobe of K1 and K8 on both sides of the switch to its long-view
+    path, at 65536 texels from the grid (K1 k=6, K8 k=16): the last V its
+    register layout takes (32 lanes, ``max_views``) against the first V past
+    it, with the layout, warps an SM and registers of each. One view more
+    is 0.4–0.8% more work, so a long-view time near the register one would
+    make the register layout's 32-lane instantiations replaceable."""
+    res = {}
+    for model in ("blinn_phong", "phong", "cook_torrance", "ward"):
+        cfg = k1.config(model)
+        v_max = k1.max_views(len(k0.SHADING_KERNELS[model].angle_names))
+        for v in (v_max, v_max + 1):
+            ang, target, _ = make_problem(rng, T_LONG_TIMED, v, model)
+            inputs = k1.stack_inputs(model, ang, target)
+            occ = k1.occupancy(model, v)
+            res[f"K1/{model}/V={v}"] = dict(
+                ms=cuda_ms(lambda: k1.varpro_rows_cuda(cfg, *inputs, iters=6), reps=3),
+                layout=[occ["lanes"], occ["views_per_lane"], occ["block_t"]],
+                warps_per_sm=occ["warps_per_sm"], registers=occ["registers"],
+                local_bytes=occ["local_bytes"])
+            del ang, target, inputs
+    for model in ND_LOBES:
+        cfg = k8.config(model)
+        v_max = k8.max_views(len(k0.SHADING_KERNELS[model].angle_names), cfg.d)
+        for v in (v_max, v_max + 1):
+            ang, target, _ = nd_case(rng, model, T_LONG_TIMED, v)
+            inputs = k8.stack_inputs(model, ang, target)
+            occ = k8.occupancy(model, v)
+            res[f"K8/{model}/V={v}"] = dict(
+                ms=cuda_ms(lambda: k8.varpro_nd_rows_cuda(cfg, *inputs, iters=16), reps=3),
+                layout=[occ["lanes"], occ["views_per_lane"], occ["block_t"]],
+                warps_per_sm=occ["warps_per_sm"], registers=occ["registers"],
+                local_bytes=occ["local_bytes"])
+            del ang, target, inputs
+    log(f"long-view switch: {res}")
+    return res
 
 
 def nd_texel_problem(model: str, seed: int) -> tuple[TexelProblem, np.ndarray]:
@@ -2925,6 +3105,10 @@ def main() -> int:
     del nd_problems
     lap("K8 timing and breakdown")
 
+    # K1 and K8 past their register layouts
+    long_views = phase_long_views(errs_parity, errs_k8)
+    lap("K1 and K8 long-view paths")
+
     numbers = {
         "numbers": {
             "card": card, "kernel": "K1 varpro (csrc/varpro.cu)",
@@ -2960,7 +3144,10 @@ def main() -> int:
             "card": card, "kernel": "K8 fused d-D VarPro (csrc/varpro_nd.cu)",
             "k8_parity": k8_parity, "main_path": nd_main_path, "main_path_warm": nd_breakdown,
             "timing": k8_timing, "ptxas": {"varpro_nd": ptxas_numbers().get("varpro_nd")},
-            "seconds": time.perf_counter() - t_start,
+        },
+        "numbers_long_views": {
+            "card": card, "kernel": "K1 and K8 past their register layouts (long-view path)",
+            **long_views, "seconds": time.perf_counter() - t_start,
         },
     }
     for key, value in numbers.items():
@@ -2976,13 +3163,14 @@ def main() -> int:
     k7_t = ne_timing["k7"]["main_path"]["full"]
     k8_t = k8_timing["timber-aniso-varpro"]
 
-    def shade_entry(name, kernel, replaces, timed):
+    def shade_entry(name, kernel, replaces, timed, extra=()):
         # K2 as the relight call gives it, K3 and K4 as the gradient step does
         return {"name": name, "route": "cuda", "source": "brdf_tpu_torch/csrc/shade.cu",
                 "replaces": replaces, "launches": shade_launches[kernel],
                 "max_abs_err": max(errs_shade[kernel]), "ms": timed[kernel]["ms"],
                 "plain_ms": timed[kernel]["plain_ms"], "bound_ms": timed[kernel]["bound_ms"],
-                "bound_by": timed[kernel]["bound_by"], "library_ms": None}
+                "bound_by": timed[kernel]["bound_by"], "library_ms": None,
+                **{key: timed[kernel][key] for key in extra}}
 
     print(json.dumps({"kernels": [{
         # device functions inlined into K1-K7: they run once per launch of any
@@ -3021,7 +3209,8 @@ def main() -> int:
         shade_entry("shade_fwd_k2", "fwd", "brdf_tpu/ops/shading_pallas.py:531",
                     shade_timing["relight_call"]),
         shade_entry("shade_bwd_params_k3", "bwd_params", "brdf_tpu/ops/shading_pallas.py:537",
-                    shade_timing["shading_batch"]),
+                    shade_timing["shading_batch"],
+                    extra=("registers", "warps_per_sm", "sass_per_pair", "issue_floor_ms")),
         shade_entry("shade_bwd_angles_k4", "bwd_angles", "brdf_tpu/ops/shading_pallas.py:553",
                     shade_timing["shading_batch"]),
     {

@@ -1,5 +1,5 @@
 """The port imports neither JAX nor the JAX package, anywhere: an AST scan
-of ``brdf_tpu_torch/**/*.py`` and ``chip_smoke.py``."""
+of ``brdf_tpu_torch/**/*.py``, ``chip_smoke.py`` and ``tools/*.py``."""
 
 import ast
 from pathlib import Path
@@ -13,7 +13,8 @@ FORBIDDEN = ("jax", "jaxlib", "brdf_tpu")
 
 
 def _port_files():
-    return sorted((ROOT / "brdf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "brdf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _forbidden(name: str) -> bool:

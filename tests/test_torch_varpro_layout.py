@@ -194,9 +194,10 @@ def test_zero_weight_views_change_nothing_where_a_lanes_last_slot_is_past_v(mode
 
 @pytest.mark.parametrize("model", SEPARABLE)
 def test_plain_k1_takes_views_past_the_kernels_largest(model, monkeypatch):
-    """Past ``max_views`` the kernel raises, but the plain version, the CPU
-    path of ``engine="varpro"``, takes any view count as the Pallas kernel
-    does: it sums as 32 lanes of ⌈V/32⌉ views, which in float64 agrees with
+    """Past ``max_views`` the register layout raises (the kernel runs its
+    long-view path there), and the plain version, the CPU path of
+    ``engine="varpro"``, takes any view count as the Pallas kernel does: it
+    sums as 32 lanes of ⌈V/32⌉ views, which in float64 agrees with
     a left-to-right sum within 1e-12 (grid init and a start's closed form;
     the cancelling gradient within 1e-10 absolute), and in float32 its closed form at a start matches ``varpro_fit_pallas``
     lane for lane to 1e-4 on all but the near-singular lanes."""
