@@ -403,3 +403,8 @@ MODELS: dict[str, ModelSpec] = {
         tangent=True,
     ),
 }
+
+
+def brdf_eval(model: str, params: torch.Tensor, angles: ShadingAngles) -> torch.Tensor:
+    """Evaluate a registered model by name."""
+    return MODELS[model].fn(params, angles)

@@ -600,6 +600,25 @@ def shading_value_and_grad(
     return out[0], out[1:1 + spec.n_params].T
 
 
+def normal_equations(
+    model: str,
+    params: torch.Tensor,      # (T, m)
+    angles: ShadingAngles,     # channels (T, V)
+    target: torch.Tensor,      # (T, V)
+    weights: torch.Tensor | None = None,
+):
+    """Per-texel χ² and Gauss-Newton matrix at ``params``: ``(chi2 (T,),
+    JtJ (T, m, m))`` with the residual ``(I − y)·w`` and the lobe's analytic
+    Jacobian (K6 in ``"full"`` mode, its packed upper triangle unfolded)."""
+    m = PALLAS_MODELS[model].n_params
+    ang, y, w = _stack_lobe(model, angles, target, weights)
+    out = ne_rows(model, "full", ang, y, w, params.to(torch.float32).T.contiguous())
+    upper, _ = _split_full(out, m)
+    jtj = torch.stack([torch.stack([upper[(min(j, k), max(j, k))] for k in range(m)], -1)
+                       for j in range(m)], -2)
+    return out[0], jtj
+
+
 def _joint_prep(geom: ShadingGeometry, target: torch.Tensor, weights):
     """Views-major stacks for K7: ``lv (6, V, T)``, ``y``/``w (3, V, T)`` and the
     frame ``(9, T)``. A ``(T, V)`` weight is shared by the three channels."""

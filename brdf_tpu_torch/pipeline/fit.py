@@ -13,9 +13,11 @@ checkpointer and ``chunk_iters`` the solve runs in resumable chunks
 killed run picks up where it stopped. ``fit_joint_normalmap`` and
 ``fit_joint_normalmap_with_gains`` are the joint normal-map tier: m = 9 (or
 11) parameters per texel, the three channels sharing the shape and a fitted
-normal offset. Not ported yet: cast-shadow weights (``shadow_weights=True``,
-ROADMAP.md Queue A item 10), ``fit_single_material`` and
-``FitReport.statistics`` (Queue A item 9).
+normal offset. ``fit_single_material`` fits one parameter set per channel
+over every texel's measurements, and ``FitReport.statistics`` gives the
+post-fit covariance statistics. ``shadow_weights=True`` in the builders
+zero-weights the (texel, light) pairs in cast shadow
+(``geometry/visibility.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from brdf_tpu_torch.device import resolve_device
 from brdf_tpu_torch.geometry.texel import pixel_texels, sample_views
+from brdf_tpu_torch.geometry.visibility import light_visibility
 from brdf_tpu_torch.models.brdf import (
     MODELS,
     ShadingAngles,
@@ -43,13 +46,14 @@ from brdf_tpu_torch.models.normalmap import (
     joint_spec,
 )
 from brdf_tpu_torch.ops.lm import PALLAS_MODELS
-from brdf_tpu_torch.ops.ne import lm_fit_joint_chunked
+from brdf_tpu_torch.ops.ne import lm_fit_joint_chunked, normal_equations
 from brdf_tpu_torch.parallel.fit import fit_texels
 from brdf_tpu_torch.pipeline.diagnostics import estimate_view_gains
 from brdf_tpu_torch.pipeline.scene import Scene
 from brdf_tpu_torch.solver.init import linear_grid_init
 from brdf_tpu_torch.solver.lm import LMOptions, LMResult, StopReason, levmar_bc
 from brdf_tpu_torch.solver.robust import robust_weights, saturation_weights
+from brdf_tpu_torch.solver.stats import corcoef, covariance_from_normal, stddev
 from brdf_tpu_torch.solver.varpro_joint import varpro_fit_joint
 from brdf_tpu_torch.utils.checkpoint import latest_step
 
@@ -67,12 +71,6 @@ class TexelProblem(NamedTuple):
     normals: np.ndarray | None = None  # (T, 3) texel shading normals
 
 
-def _no_shadow_weights() -> NotImplementedError:
-    return NotImplementedError(
-        "shadow_weights=True needs geometry/visibility.py::light_visibility, which is not "
-        "ported yet (ROADMAP.md Queue A item 10)")
-
-
 def build_face_problem(
     scene: Scene, dtype=np.float32, with_geometry: bool = False,
     tangent_frame: bool = False, shadow_weights: bool = False,
@@ -86,8 +84,6 @@ def build_face_problem(
     solves for identical per-face results; pixel-level texels come from UV
     texelization (see ``texel.py``) where parameters genuinely vary per pixel.
     """
-    if shadow_weights:
-        raise _no_shadow_weights()
     mesh = scene.mesh
     f_count = mesh.num_faces
     v_count = scene.num_views
@@ -122,6 +118,12 @@ def build_face_problem(
 
     centroids = mesh.centroids[face_ids]
     normals = mesh.face_normals[face_ids]
+    if shadow_weights:
+        # zero-weight (texel, light) pairs in cast shadow — the reference
+        # fit those as lit (brdfdata.cpp:1188-1227 has no visibility term)
+        weights = weights * light_visibility(
+            mesh, centroids, scene.lights, resolution=shadow_resolution
+        )
     geom = shading_geometry_np(centroids, normals, scene.eyes(), scene.lights)
     geom = ShadingGeometry(*(a.astype(np.dtype(dtype)) for a in geom))
 
@@ -151,13 +153,15 @@ def build_pixel_problem(
     actual fit granularity (``brdfdata.cpp:1195-1221``), but with hit-point
     interpolated positions/normals and reprojection sampling with z-buffer
     visibility per view (multi-camera capable)."""
-    if shadow_weights:
-        raise _no_shadow_weights()
     tex = pixel_texels(
         scene.mesh, scene.raster_map(reference_view), stride=stride,
         smooth_normals=smooth_normals,
     )
     intensity, weights = sample_views(tex, scene)
+    if shadow_weights:
+        weights = weights * light_visibility(
+            scene.mesh, tex.points, scene.lights, resolution=shadow_resolution,
+        )
 
     # host-side NumPy throughout (see build_face_problem)
     geom = shading_geometry_np(tex.points, tex.normals, scene.eyes(), scene.lights)
@@ -196,6 +200,48 @@ class FitReport:
             "median": float(np.median(chi2)),
             "p90": float(np.percentile(chi2, 90)),
             "max": float(chi2.max()),
+        }
+
+    def statistics(self, problem: "TexelProblem") -> dict:
+        """Per-(texel, channel) fit statistics — the post-fit analytics
+        levmar exposed as ``dlevmar_covar/stddev/corcoef/R2``
+        (``levmar/misc_core.c:564-658``), over the whole fit in one batch.
+        Returns host arrays: ``stddev`` (T, C, m) parameter standard
+        deviations, ``corcoef`` (T, C, m, m) correlation matrices and ``r2``
+        (T, C) coefficients of determination.
+
+        The residual is ``(pred − y)·w`` under the problem's weights, as in
+        the JAX package; χ² and JᵀJ come from the normal-equation kernel K6
+        (``ops/ne.py::normal_equations``, its plain version on the CPU) on
+        the device the parameters are on, with the lobe's analytic
+        derivatives, and ``n`` of the covariance's degrees of freedom counts
+        the views of positive weight."""
+        spec = MODELS[self.model]
+        params = self.params
+        dev = params.device
+        t, c, m = params.shape
+        with torch.no_grad():
+            ang = ShadingAngles(*(
+                None if a is None else _as_tensor(a, dev, torch.float32).repeat_interleave(c, 0)
+                for a in problem.angles))
+            intensity = _as_tensor(problem.intensity, dev, torch.float32)
+            v = intensity.shape[1]
+            y = intensity.permute(0, 2, 1).reshape(t * c, v)
+            w = _as_tensor(problem.weights, dev, torch.float32).repeat_interleave(c, 0)
+            p = params.reshape(t * c, m).to(torch.float32)
+            chi2, jtj = normal_equations(self.model, p, ang, y, w)         # (T·C,), (T·C, m, m)
+            cov = covariance_from_normal(jtj, chi2, torch.sum(w > 0, -1))
+            # weighted R²: zero-weight (masked/saturated) views drop out
+            pred = torch.where(w > 0, spec.fn(p, ang), y)
+            wsum = torch.clamp(torch.sum(w, -1), min=1e-12)
+            ybar = torch.sum(w * y, -1) / wsum
+            ss_res = torch.sum((w * (y - pred)) ** 2, -1)
+            ss_tot = torch.clamp(torch.sum((w * (y - ybar[:, None])) ** 2, -1), min=1e-30)
+            r2 = 1.0 - ss_res / ss_tot
+        return {
+            "stddev": stddev(cov).reshape(t, c, m).cpu().numpy(),
+            "corcoef": corcoef(cov).reshape(t, c, m, m).cpu().numpy(),
+            "r2": r2.reshape(t, c).cpu().numpy(),
         }
 
 
@@ -702,3 +748,47 @@ def fit_joint_normalmap_with_gains(
             pred = joint_eval(spec, res.p, geometry).cpu().numpy()
         gains = estimate_view_gains(pred, intensity, w3)
     return res, spec, gains
+
+
+def _median0(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.median(x, axis=0)``: the mean of the two middle values for an
+    even count (``torch.median`` takes the lower one)."""
+    srt = torch.sort(x, dim=0).values
+    n = srt.shape[0]
+    return (srt[(n - 1) // 2] + srt[n // 2]) * 0.5
+
+
+def fit_single_material(
+    problem: TexelProblem,
+    model: str = "blinn_phong",
+    opts: LMOptions | None = None,
+    device=None,
+) -> torch.Tensor:
+    """One global parameter set per channel over all texels' measurements
+    (n = T·V residuals), the ``SolveEquation_SingleBRDF`` path
+    (``brdfdata.cpp:991-1075``; itmax there was 2000). Returns (C, m) on
+    ``device`` (``cuda`` unless the caller passes another).
+
+    Each channel starts from the median over texels of its per-texel
+    ``linear_grid_init``; the channels then solve as one batch of C
+    problems of ``levmar_bc`` sharing the angles and weights
+    (``data_axes=(None, 0, None)``), in float32 as in the JAX package."""
+    dev = resolve_device(device)
+    spec = MODELS[model]
+    if opts is None:
+        opts = LMOptions(eps1=1e-8, eps2=1e-10, eps3=1e-16, itmax=300)
+    ang = ShadingAngles(*(None if a is None else _as_tensor(a, dev) for a in problem.angles))
+    # (C, T, V) channel-major: every channel is one problem of the batch
+    targets = _as_tensor(problem.intensity, dev, torch.float32).permute(2, 0, 1).contiguous()
+    w = _as_tensor(problem.weights, dev, torch.float32)
+
+    def residual(p, data):
+        a, y, ww = data
+        return ((spec.fn(p, a) - y) * ww).reshape(-1)
+
+    with torch.no_grad():
+        p0 = torch.stack([_median0(linear_grid_init(model, ang, targets[ch], weights=w))
+                          for ch in range(targets.shape[0])])
+    res = levmar_bc(residual, p0, spec.lower, spec.upper, data=(ang, targets, w), opts=opts,
+                    data_axes=(None, 0, None))
+    return res.p

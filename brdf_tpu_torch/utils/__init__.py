@@ -1,1 +1,1 @@
-"""Run-time utilities of the port (checkpoints)."""
+"""Run-time utilities of the port: checkpoints, event logs, timers."""

@@ -124,7 +124,26 @@ per source, in parallel), then:
     against their plain versions: every lobe at T=517 with the first V past
     its register layout and with 400 views; and times one call of each at
     65536 × 400;
-25. prints one JSON line of every ported kernel (K0–K8), then the card line,
+25. drives the front end, ``python -m brdf_tpu_torch``, through ``cli.main``
+    in this process on a synthetic scan written by ``tools/synthetic_scene.py``
+    at the reference scans' size (a bumped sphere of 20480 faces, 16 LED
+    images of 800 x 600 and a dark frame, a Tsai ``.cal``): ``fit`` from the
+    presets with ``scene_dir`` replaced — timber-blinn and bunny-ct at pixel
+    granularity with ``--stats`` (K1, 3 launches a fit; K6 once), cup-joint
+    with ``--shadow-weights`` and cup-joint-gains (K7), cup-single and
+    timber-aniso (K5, 3 launches) — then ``render``, ``relight --light``,
+    ``relight --env`` (256 samples, a face and a pixel run), ``export --stats
+    --coverage --residual`` and a 12-frame 512 x 512 ``turntable`` (K2, 17
+    launches); counts the launches of K1, K2, K5, K6 and K7 over those
+    commands; holds every fit to equality (saved arrays and stop codes)
+    against the same command with every kernel's plain version stood in, the
+    face and joint runs and the pixel run to a view-0 render-vs-photo RMS
+    < 0.02 and the LM fits to a converged share on lit texels (> 0.97 for
+    K5's; for the joint runs, over the JAX package's share on this scan less
+    0.01: ``FRONT_RUNS`` says why); prints
+    each command's wall time and its events' ``secs``; runs
+    ``python -m brdf_tpu_torch presets`` and ``info``;
+26. prints one JSON line of every ported kernel (K0–K8), then the card line,
     then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises and the script exits non-zero without the ``ok`` line.
@@ -134,6 +153,7 @@ JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -150,7 +170,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch  # noqa: E402
 
-from brdf_tpu_torch import native  # noqa: E402
+from brdf_tpu_torch import cli, native  # noqa: E402
+from brdf_tpu_torch.configs import PRESETS  # noqa: E402
 from brdf_tpu_torch.geometry import Camera, TriangleMesh  # noqa: E402
 from brdf_tpu_torch.geometry.primitives import icosphere  # noqa: E402
 from brdf_tpu_torch.geometry.rasterize import rasterize_mesh  # noqa: E402
@@ -170,6 +191,7 @@ from brdf_tpu_torch.parallel import fit as pfit  # noqa: E402
 from brdf_tpu_torch.pipeline import fit as pipeline_fit  # noqa: E402
 from brdf_tpu_torch.pipeline import render as prender  # noqa: E402
 from brdf_tpu_torch.pipeline import scene as pscene  # noqa: E402
+from brdf_tpu_torch.pipeline.envlight import _sh9_basis, latlong_directions  # noqa: E402
 from brdf_tpu_torch.pipeline.fit import (  # noqa: E402
     TexelProblem,
     build_face_problem,
@@ -181,7 +203,8 @@ from brdf_tpu_torch.pipeline.fit import (  # noqa: E402
 from brdf_tpu_torch.solver.init import linear_grid_init  # noqa: E402
 from brdf_tpu_torch.solver.lm import LMOptions  # noqa: E402
 from brdf_tpu_torch.solver.robust import saturation_weights  # noqa: E402
-from brdf_tpu_torch.utils.checkpoint import FitCheckpointer, latest_step  # noqa: E402
+from brdf_tpu_torch.utils.checkpoint import FitCheckpointer, latest_step, load_fit_state  # noqa: E402
+from tools.synthetic_scene import write_scene  # noqa: E402
 
 T_BENCH, V = 131072, 16
 T_SMALL = 16384
@@ -3005,6 +3028,304 @@ def ptxas_by_mode(entries: list[dict]) -> dict:
                 spill_bytes_max=max(e["spill_store_bytes"] + e["spill_load_bytes"] for e in entries))
 
 
+# ---------------------------------------------------------------------------
+# 25. The front end: python -m brdf_tpu_torch on a synthetic scan
+# ---------------------------------------------------------------------------
+
+FRONT_SUBDIV, FRONT_SIZE = 5, (800, 600)       # 20480 faces, the scans' 800 x 600
+FRONT_SCENES = {"blinn": "blinn_phong", "ct": "cook_torrance"}
+FRONT_RUNS = {
+    # run: (preset, scene, ModelConfig fields replaced, extra fit options,
+    #       the kernel it launches, its launches, the LM fit's bar on the
+    #       converged share of its lit texels). The VarPro fits have none:
+    #       their stop 3 says the fixed Newton schedule ran out. The joint
+    #       fits' chunked LM tier leaves about 3% of the lit texels at the
+    #       preset's itmax 40 on this scan, and the JAX package's leaves as
+    #       many: tests/test_torch_joint_converged.py, run as a script, fits
+    #       this scan with both packages on the CPU. The JAX package's shares
+    #       there, 0.9678 and 0.9642, less 0.01 (that test's margin between
+    #       the packages) are the joint runs' bars.
+    "timber-blinn": ("timber-blinn", "blinn", {}, [], "K1", 3, None),
+    "bunny-ct-pixel": ("bunny-ct", "ct", dict(granularity="pixel", pixel_stride=1), ["--stats"],
+                       "K1", 3, None),
+    "cup-joint-shadows": ("cup-joint", "ct", {}, ["--shadow-weights"], "K7", None, 0.9578),
+    "cup-joint-gains": ("cup-joint-gains", "ct", {}, [], "K7", None, 0.9542),
+    "cup-single": ("cup-single", "blinn", {}, [], None, None, None),
+    "timber-aniso": ("timber-aniso", "ct", {}, [], "K5", 3, 0.97),
+}
+FRONT_RMS_RUNS = ("timber-blinn", "bunny-ct-pixel", "cup-joint-shadows", "cup-joint-gains",
+                  "timber-aniso")
+FRONT_ENV_SAMPLES = 256
+
+
+def front_counts() -> dict:
+    return {"K1": k1.LAUNCHES, "K2": k0.SHADE_LAUNCHES["fwd"], "K5": k5.LAUNCHES,
+            "K6": k6.LAUNCHES["ne"], "K7": k6.LAUNCHES["joint_ne"], "K8": k8.LAUNCHES}
+
+
+def reset_front_counts() -> None:
+    k1.LAUNCHES = k5.LAUNCHES = k8.LAUNCHES = 0
+    reset_shade_counts()
+    reset_ne_counts()
+
+
+def all_plain() -> ExitStack:
+    """Every kernel the front end can reach with its plain version stood in on
+    the card: the reference each CLI fit is held against."""
+    stack = plain_shading()
+    for target, name, plain in ((pfit, "varpro_fit_fused", _plain_fused),
+                                (k5, "lm_rows_cuda", k5.lm_rows_plain),
+                                (k6, "ne_rows_cuda", k6.ne_rows_plain),
+                                (k6, "joint_ne_rows_cuda", k6.joint_ne_rows_plain),
+                                (k8, "varpro_nd_rows_cuda", k8.varpro_nd_rows_plain)):
+        stack.enter_context(mock.patch.object(target, name, plain))
+    return stack
+
+
+class FitRecorder:
+    """What the CLI's calls into ``pipeline/fit.py`` return, kept by name (the
+    last call of each): the stop codes and the problem, which the run
+    directory does not save."""
+
+    NAMES = ("build_face_problem", "build_pixel_problem", "fit_per_texel",
+             "fit_joint_normalmap", "fit_single_material")
+
+    def __init__(self):
+        self.last: dict = {}
+
+    def patches(self) -> ExitStack:
+        stack = ExitStack()
+        for name in self.NAMES:
+            def keep(*args, _fn=getattr(pipeline_fit, name), _name=name, **kw):
+                out = _fn(*args, **kw)
+                self.last[_name] = out
+                return out
+            stack.enter_context(mock.patch.object(pipeline_fit, name, keep))
+        return stack
+
+    def stop(self):
+        if "fit_per_texel" in self.last:
+            return self.last["fit_per_texel"].result.stop
+        if "fit_joint_normalmap" in self.last:
+            return self.last["fit_joint_normalmap"][0].stop
+        return None
+
+    def problem(self):
+        return self.last.get("build_face_problem", self.last.get("build_pixel_problem"))
+
+
+def front_env(path: str) -> str:
+    """A smooth lat-long environment (64 x 128, positive, band-limited to
+    SH2, from seed 61) saved as .npy: tests/test_envlight.py's kind."""
+    rng = np.random.default_rng(61)
+    coeffs = rng.normal(size=(9, 3)) * 0.15
+    coeffs[0] = 1.0
+    env = _sh9_basis(latlong_directions(64, 128)) @ coeffs
+    env = env - min(env.min() - 0.1, 0.0)
+    np.save(path, env)
+    return path
+
+
+def run_cli(argv: list, walls: dict, key: str) -> None:
+    """One command through the CLI's ``main`` in this process, on the card;
+    its wall time (host clock to a synchronised end)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    walls[key] = time.perf_counter() - t0
+    check(rc == 0, f"{' '.join(argv[:3])} exited {rc}")
+
+
+def fit_events(run: str) -> dict:
+    """The ``secs`` of each event of a run's events.jsonl, by kind."""
+    with open(os.path.join(run, "events.jsonl")) as fh:
+        events = [json.loads(line) for line in fh]
+    return {e["kind"]: e["secs"] for e in events if "secs" in e}
+
+
+def view0_rms(run: str) -> float:
+    """View-0 render-vs-photo RMS of a saved run over its covered pixels,
+    rendered as the images were (flat shading; the fitted gain of a gains
+    run), both clipped to the photo's [0, 1]."""
+    arrays, meta, cfg = cli._load_run(run)
+    scene = cli._build_scene(cfg)
+    model = cfg.model.model
+    if "pixels" in arrays:
+        img = prender.render_pixel_fit(model, scene, arrays["params"], arrays["pixels"],
+                                       arrays["points"], arrays["normals"], view=0)
+    else:
+        params, faces, offsets = cli._expand_params(arrays, meta, scene)
+        img = prender.render_image(model, scene, params, faces, view=0, normal_offsets=offsets,
+                                   use_vertex_normals=False)
+        if arrays.get("view_gains") is not None:
+            img = img * float(arrays["view_gains"][0])
+    cov = img.sum(-1) > 0
+    return float(np.sqrt(np.mean((np.clip(img[cov], 0.0, 1.0) - scene.images[0][cov]) ** 2)))
+
+
+def lit_converged(stop: torch.Tensor, problem, m: int) -> float:
+    """Share of the lit texels' fits that converged (stop 1, 2 or 6): a texel
+    is lit when at least m + 1 views see it lit (weight > 0, a channel above
+    0.02)."""
+    w = torch.as_tensor(problem.weights).cpu()
+    inten = torch.as_tensor(problem.intensity).cpu()
+    lit = ((w > 0) & (inten.amax(-1) > 0.02)).sum(-1) >= m + 1
+    conv = (stop == 1) | (stop == 2) | (stop == 6)
+    conv = conv.cpu()
+    conv = conv.all(-1) if conv.ndim == 2 else conv
+    return share_of(conv[lit])
+
+
+def phase_front_end(work: str) -> tuple[dict, dict]:
+    """``python -m brdf_tpu_torch`` on a synthetic scan at the size of the
+    reference's (16 views of 800 x 600, 20480 faces): the Quick start's fits
+    from the presets (scene_dir replaced) and the serve commands, through
+    ``cli.main`` in this process; each fit again with every kernel's plain
+    version stood in (equal saved arrays and stop codes); view-0 RMS and
+    converged shares; ``presets`` and ``info`` as a module."""
+    out: dict = {"scene": dict(faces=20 * 4 ** FRONT_SUBDIV, width=FRONT_SIZE[0],
+                               height=FRONT_SIZE[1], views=16)}
+    t0 = time.perf_counter()
+    scenes = {}
+    for key, model in FRONT_SCENES.items():
+        scenes[key] = os.path.join(work, f"scene-{key}")
+        write_scene(scenes[key], subdiv=FRONT_SUBDIV, width=FRONT_SIZE[0], height=FRONT_SIZE[1],
+                    model=model, seed=7 if key == "ct" else 8)
+    out["scene"]["write_s"] = time.perf_counter() - t0
+    env = front_env(os.path.join(work, "env.npy"))
+
+    def config(run: str) -> str:
+        preset, scene, model_fields, *_ = FRONT_RUNS[run]
+        cfg = PRESETS[preset]
+        cfg = dataclasses.replace(cfg, scene=dataclasses.replace(cfg.scene, scene_dir=scenes[scene]),
+                                  model=dataclasses.replace(cfg.model, **model_fields))
+        path = os.path.join(work, f"{run}.json")
+        with open(path, "w") as fh:
+            fh.write(cfg.to_json())
+        return path
+
+    def rdir(run: str, plain: bool = False) -> str:
+        return os.path.join(work, "runs", run + ("-plain" if plain else ""))
+
+    serve = [
+        ("render", ["render", "--run", rdir("cup-joint-shadows"), "--view", "0"]),
+        ("relight --light", ["relight", "--run", rdir("cup-joint-shadows"), "--view", "0",
+                             "--light", "300,150,300", "--out", os.path.join(work, "light.png")]),
+        ("relight --env (face)", ["relight", "--run", rdir("timber-blinn"), "--view", "0",
+                                  "--env", env, "--env-samples", str(FRONT_ENV_SAMPLES),
+                                  "--out", os.path.join(work, "env-face.png")]),
+        ("relight --env (pixel)", ["relight", "--run", rdir("bunny-ct-pixel"), "--view", "0",
+                                   "--env", env, "--env-samples", str(FRONT_ENV_SAMPLES),
+                                   "--out", os.path.join(work, "env-pixel.png")]),
+        ("export", ["export", "--run", rdir("cup-joint-shadows"), "--stats", "--coverage",
+                    "--residual"]),
+        ("turntable", ["turntable", "--run", rdir("cup-joint-shadows"), "--frames", "12",
+                       "--size", "512x512", "--out", os.path.join(work, "turntable")]),
+    ]
+    walls, recorded = {}, {}
+    torch.cuda.synchronize()
+    reset_front_counts()                       # the front end's path starts here
+    counts_by_run = {}
+    for run, (_, _, _, extra, *_rest) in FRONT_RUNS.items():
+        rec = FitRecorder()
+        before = front_counts()
+        with rec.patches():
+            run_cli(["fit", "--config", config(run), "--out", rdir(run), *extra], walls, run)
+        counts_by_run[run] = {k: v - before[k] for k, v in front_counts().items()}
+        recorded[run] = rec
+    before = front_counts()
+    for key, argv in serve:
+        run_cli(argv, walls, key)
+    serve_counts = {k: v - before[k] for k, v in front_counts().items()}
+    launches = front_counts()                  # ... and ends here
+    out["launches"] = launches
+    out["launches_by_run"] = counts_by_run
+    out["serve_launches"] = serve_counts
+    log(f"front end launches {launches}, by run {counts_by_run}, serve {serve_counts}")
+    for kernel in ("K1", "K2", "K5", "K6", "K7"):
+        check(launches[kernel] > 0, f"the front end never launched {kernel}: {launches}")
+    check(serve_counts["K2"] == 5 + 12, f"the serve commands launched K2 {serve_counts['K2']} times")
+    check(counts_by_run["bunny-ct-pixel"]["K6"] == 1, "fit --stats launched K6 not once")
+
+    # every fit again with the plain versions: equal saved arrays and stop codes
+    runs = {}
+    for run, (preset, scene, _, extra, kernel, expected, conv_bar) in FRONT_RUNS.items():
+        if expected is not None:
+            check(counts_by_run[run][kernel] == expected,
+                  f"{run}: {kernel} launched {counts_by_run[run][kernel]} times, not {expected}")
+        ref = FitRecorder()
+        with all_plain(), ref.patches():
+            run_cli(["fit", "--config", config(run), "--out", rdir(run, plain=True), *extra],
+                    walls, run + " (plain)")
+        got, _ = load_fit_state(rdir(run))
+        want, _ = load_fit_state(rdir(run, plain=True))
+        check(set(got) == set(want), f"{run}: saved keys {sorted(got)} and {sorted(want)}")
+        equal = {key: bool(np.array_equal(got[key], want[key], equal_nan=True)) for key in got}
+        stop, stop_ref = recorded[run].stop(), ref.stop()
+        if stop is not None:
+            equal["stop"] = bool(torch.equal(stop, stop_ref))
+        check(all(equal.values()), f"{run}: kernel path against plain path {equal}")
+        params = got["joint_params"] if "joint_params" in got else got["params"]
+        err = float(np.nan_to_num(np.abs(params - (want["joint_params"] if "joint_params" in want
+                                                      else want["params"]))).max())
+        row = dict(preset=preset, scene=FRONT_SCENES[scene], options=extra, kernel=kernel,
+                   launches=counts_by_run[run], equal_to_plain=equal, max_abs_err=err,
+                   wall_s=walls[run], plain_wall_s=walls[run + " (plain)"],
+                   events_secs=fit_events(rdir(run)))
+        problem = recorded[run].problem()
+        if problem is not None:
+            row["texels"] = len(problem.face_ids)
+        if stop is not None:
+            m = 3 if "joint_params" in got else MODELS[PRESETS[preset].model.model].n_params
+            row["lit_converged"] = lit_converged(stop, problem, m)
+            row["converged"] = share_of((stop == 1) | (stop == 2) | (stop == 6))
+        if "chi2" in got:
+            row["chi2_median"] = float(np.median(got["chi2"]))
+        if "view_gains" in got:
+            row["view_gains"] = [float(g) for g in got["view_gains"]]
+        if "r2" in got:
+            row["r2_median"] = float(np.nanmedian(got["r2"]))
+            row["stddev_median"] = float(np.nanmedian(got["stddev"]))
+        if run in FRONT_RMS_RUNS:
+            row["view0_rms"] = view0_rms(rdir(run))
+            check(row["view0_rms"] < 0.02, f"{run}: view-0 RMS {row['view0_rms']}")
+        if conv_bar is not None:
+            check(row["lit_converged"] > conv_bar, f"{run}: converged share {row['lit_converged']}")
+        runs[run] = row
+        log(f"front end {run}: {row}")
+    out["runs"] = runs
+    out["serve_wall_s"] = {key: walls[key] for key, _ in serve}
+    log(f"front end serve wall s: {out['serve_wall_s']}")
+
+    modules = {}
+    for command in ("presets", "info"):
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, "-m", "brdf_tpu_torch", command],
+                              cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                              text=True, timeout=300)
+        check(done.returncode == 0, f"python -m brdf_tpu_torch {command}: {done.stderr[-2000:]}")
+        modules[command] = dict(wall_s=time.perf_counter() - t0, stdout=done.stdout)
+    check(len(modules["presets"].pop("stdout").splitlines()) == len(PRESETS), "presets")
+    info = json.loads(modules["info"].pop("stdout"))
+    check(info["device_count"] >= 1 and info["cuda_available"], f"info: {info}")
+    modules["info_devices"] = info["devices"]
+    out["module"] = modules
+    return launches, out
+
+
+def run_front_end():
+    """``phase_front_end`` in a temporary directory of its own, with the
+    raster-map cache inside it, gone when the phase ends. With the kernels
+    built, the front end alone on the card is
+
+        python3 -c 'import chip_smoke as cs; cs._build.build_all(); print(cs.run_front_end()[0])'
+    """
+    with tempfile.TemporaryDirectory() as work, \
+            mock.patch.dict(os.environ, {pscene.CACHE_DIR_ENV: os.path.join(work, "cache")}):
+        return phase_front_end(work)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
@@ -3109,6 +3430,10 @@ def main() -> int:
     long_views = phase_long_views(errs_parity, errs_k8)
     lap("K1 and K8 long-view paths")
 
+    # the front end, python -m brdf_tpu_torch, on a synthetic scan
+    front_launches, front_end = run_front_end()
+    lap("front end")
+
     numbers = {
         "numbers": {
             "card": card, "kernel": "K1 varpro (csrc/varpro.cu)",
@@ -3147,7 +3472,12 @@ def main() -> int:
         },
         "numbers_long_views": {
             "card": card, "kernel": "K1 and K8 past their register layouts (long-view path)",
-            **long_views, "seconds": time.perf_counter() - t_start,
+            **long_views,
+        },
+        "numbers_front_end": {
+            "card": card, "path": "python -m brdf_tpu_torch: the presets' fits and the serve "
+            "commands on a synthetic scan (tools/synthetic_scene.py)",
+            **front_end, "seconds": time.perf_counter() - t_start,
         },
     }
     for key, value in numbers.items():
@@ -3167,6 +3497,7 @@ def main() -> int:
         # K2 as the relight call gives it, K3 and K4 as the gradient step does
         return {"name": name, "route": "cuda", "source": "brdf_tpu_torch/csrc/shade.cu",
                 "replaces": replaces, "launches": shade_launches[kernel],
+                "launches_front_end": front_launches["K2"] if kernel == "fwd" else 0,
                 "max_abs_err": max(errs_shade[kernel]), "ms": timed[kernel]["ms"],
                 "plain_ms": timed[kernel]["plain_ms"], "bound_ms": timed[kernel]["bound_ms"],
                 "bound_by": timed[kernel]["bound_by"], "library_ms": None,
@@ -3180,7 +3511,8 @@ def main() -> int:
         "source": "brdf_tpu_torch/csrc/lobes.cuh",
         "replaces": "brdf_tpu/ops/shading_pallas.py:495",
         "launches": (launches + lm_launches + sum(shade_launches.values())
-                     + k6_launches + k7_launches + nd_launches),
+                     + k6_launches + k7_launches + nd_launches
+                     + sum(front_launches[k] for k in ("K1", "K2", "K5", "K6", "K7", "K8"))),
         "max_abs_err": max(errs_k0),
         "ms": k0_t["ms"],
         "plain_ms": k0_t["plain_ms"],
@@ -3194,6 +3526,7 @@ def main() -> int:
         "source": "brdf_tpu_torch/csrc/varpro.cu",
         "replaces": "brdf_tpu/ops/varpro_pallas.py:47",
         "launches": launches,
+        "launches_front_end": front_launches["K1"],
         "max_abs_err": max(errs_parity + errs_main),
         "ms": main_t["ms"],
         "plain_ms": main_t["plain_ms"],
@@ -3219,6 +3552,7 @@ def main() -> int:
         "source": "brdf_tpu_torch/csrc/lm.cu",
         "replaces": "brdf_tpu/ops/lm_pallas.py:137",
         "launches": lm_launches,
+        "launches_front_end": front_launches["K5"],
         "max_abs_err": max(errs_k5 + errs_lm_main),
         "ms": k5_t["ms"],
         "plain_ms": k5_t["plain_ms"],
@@ -3236,6 +3570,7 @@ def main() -> int:
         "source": "brdf_tpu_torch/csrc/ne.cu",
         "replaces": "brdf_tpu/ops/lm_pallas.py:380",
         "launches": k6_launches,
+        "launches_front_end": front_launches["K6"],
         "max_abs_err": max(errs_k6),
         "ms": k6_t["ms"],
         "plain_ms": k6_t["plain_ms"],
@@ -3251,6 +3586,7 @@ def main() -> int:
         "source": "brdf_tpu_torch/csrc/joint_ne.cu",
         "replaces": "brdf_tpu/ops/lm_pallas.py:939",
         "launches": k7_launches,
+        "launches_front_end": front_launches["K7"],
         "max_abs_err": max(errs_k7),
         "ms": k7_t["ms"],
         "plain_ms": k7_t["plain_ms"],
@@ -3266,6 +3602,7 @@ def main() -> int:
         "source": "brdf_tpu_torch/csrc/varpro_nd.cu",
         "replaces": "brdf_tpu/ops/varpro_pallas.py:325",
         "launches": nd_launches,
+        "launches_front_end": front_launches["K8"],
         "max_abs_err": max(errs_k8 + errs_nd_main),
         "ms": k8_t["ms"],
         "plain_ms": k8_t["plain_ms"],

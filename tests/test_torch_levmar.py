@@ -240,17 +240,51 @@ def test_runs_in_the_dtype_of_p0():
     ({}, dict(axis_name="view")),
 ])
 def test_unported_modes_name_their_roadmap_item(kwargs, opts):
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        tlm.levmar_bc(lambda p, d: p - d, torch.zeros(3), data=torch.ones(3),
-                      opts=tlm.LMOptions(**opts), **kwargs)
+    """The modes that once raised run now (ROADMAP.md Queue A item 9 is
+    done) and give the JAX package's result on a small problem; a residual
+    axis sharded over devices still raises, naming Queue A item 5."""
+    def res_t(p, d):
+        return torch.stack([p[0] - d[0], 10.0 * (p[1] - p[0] ** 2), p[2] * p[1] - d[1]])
+
+    def res_j(p, d):
+        return jnp.stack([p[0] - d[0], 10.0 * (p[1] - p[0] ** 2), p[2] * p[1] - d[1]])
+
+    p0, data = np.array([[0.5, 0.1, 1.0], [2.0, 1.0, -1.0]]), np.array([[1.5, 2.0], [0.5, -1.0]])
+    if "axis_name" in opts:
+        with pytest.raises(NotImplementedError, match="Queue A item 5"):
+            tlm.levmar_bc(res_t, torch.tensor(p0), data=torch.tensor(data),
+                          opts=tlm.LMOptions(**opts), **kwargs)
+        return
+    rt = tlm.levmar_bc(res_t, torch.tensor(p0), data=torch.tensor(data),
+                       opts=tlm.LMOptions(**dict(OPTS, **opts)), **kwargs)
+    rj = jlm.levmar_bc(res_j, jnp.asarray(p0), data=jnp.asarray(data),
+                       opts=jlm.LMOptions(**dict(OPTS, **opts)), **kwargs)
+    np.testing.assert_allclose(rt.p.numpy(), np.asarray(rj.p), rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(rt.chi2.numpy(), np.asarray(rj.chi2), rtol=1e-8, atol=1e-20)
+    assert _same(rt, rj) == 1.0
 
 
 def test_unported_entry_points_and_bad_arguments():
-    for fn in (tlm.levmar, tlm.levmar_lec, tlm.fd_jacobian, tlm.check_jacobian):
-        with pytest.raises(NotImplementedError, match="Queue A item 9"):
-            fn()
+    """``levmar``, ``levmar_lec``, ``fd_jacobian`` and ``check_jacobian`` run
+    now (tests/test_torch_solver_golden.py holds them against the JAX
+    package); unknown options still raise."""
+    def res(p, d=None):
+        return torch.stack([p[0] - 1.0, p[1] + p[2] - 2.0, p[2]])
+
+    p0 = torch.zeros(3, dtype=torch.float64)
+    assert float(tlm.levmar(res, p0, data_axes=None).chi2) < 1e-20
+    lec = tlm.levmar_lec(res, p0, np.array([[0.0, 1.0, 1.0]]), np.array([1.0]), data_axes=None)
+    assert abs(float(lec.p[1] + lec.p[2]) - 1.0) < 1e-12
+    assert tlm.fd_jacobian(res, p0).shape == (3, 3)
+    assert float(tlm.check_jacobian(res, p0)) < 1e-8
     with pytest.raises(ValueError, match="jac_mode"):
         tlm.levmar_bc(lambda p, d: p - d, torch.zeros(3), data=torch.ones(3), jac_mode="exact")
     with pytest.raises(ValueError, match="marquardt"):
         tlm.levmar_bc(lambda p, d: p - d, torch.zeros(3), data=torch.ones(3),
                       opts=tlm.LMOptions(damping="marquardt"))
+    with pytest.raises(ValueError, match="linsolver"):
+        tlm.levmar_bc(lambda p, d: p - d, torch.zeros(3), data=torch.ones(3),
+                      opts=tlm.LMOptions(linsolver="cg"))
+    with pytest.raises(ValueError, match="data_axes"):
+        tlm.levmar_bc(lambda p, d: p - d[0], torch.zeros(3), data=(torch.ones(3),),
+                      data_axes=(0, None))

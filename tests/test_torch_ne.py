@@ -133,6 +133,27 @@ def test_shading_value_and_grad_matches_the_pallas_function(model):
 
 @pytest.mark.parametrize("weighted", [True, False], ids=["weighted", "unweighted"])
 @pytest.mark.parametrize("model", ALL_LOBES)
+def test_normal_equations_unfold_the_full_rows(model, weighted):
+    """``normal_equations`` (what ``FitReport.statistics`` reads): χ² and
+    the symmetric (T, m, m) JᵀJ, bit for bit the ``full`` rows it unfolds."""
+    t, v = 70, 13
+    m = SHADING_KERNELS[model].n_params
+    cols, ta, target, params, w = _case(model, t, v, 35, weighted)
+    rows = _port_rows(model, "full", ta, target, params, w)
+    chi2, jtj = ne.normal_equations(model, torch.tensor(params), ta, torch.tensor(target),
+                                    weights=None if w is None else torch.tensor(w))
+    assert chi2.shape == (t,) and jtj.shape == (t, m, m)
+    assert torch.equal(chi2, rows[0])
+    assert torch.equal(jtj, jtj.transpose(1, 2))
+    idx = 1
+    for j in range(m):
+        for k in range(j, m):
+            assert torch.equal(jtj[:, j, k], rows[idx])
+            idx += 1
+
+
+@pytest.mark.parametrize("weighted", [True, False], ids=["weighted", "unweighted"])
+@pytest.mark.parametrize("model", ALL_LOBES)
 def test_rows_match_autograd_of_the_lobe_in_float64(model, weighted):
     """χ² and g against ``torch.autograd`` of ``models/brdf.py``'s loss, JᵀJ
     against its forward-mode Jacobian, all in float64."""

@@ -120,8 +120,16 @@ def test_build_pixel_problem_equals_jax(synthetic, kw):
 
 @pytest.mark.parametrize("build", [build_face_problem, build_pixel_problem])
 def test_shadow_weights_name_what_is_missing(synthetic, build):
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        build(synthetic[1], shadow_weights=True)
+    """``shadow_weights=True`` is ported now (ROADMAP.md Queue A item 10):
+    the problem equals the JAX package's, its weights only lose what the
+    shadow maps of the rig's LEDs take away."""
+    js, ts, _ = synthetic
+    j_build = getattr(j_fit, build.__name__)
+    kw = dict(shadow_weights=True, shadow_resolution=256)
+    got, ref = build(ts, **kw), j_build(js, **kw)
+    same_problem(got, ref)
+    plain = build(ts)
+    assert (got.weights <= plain.weights).all() and got.weights.sum() <= plain.weights.sum()
 
 
 def test_fit_recovers_the_parameters(synthetic, face_fit):
