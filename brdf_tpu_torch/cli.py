@@ -15,9 +15,14 @@ renders, exports and relights in the other:
 Every command takes ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
 plain versions). Without a CUDA device a command that computes raises
 unless it is given ``--device cpu``: nothing falls back to the CPU quietly.
-The port runs on one device: ``--multihost`` and its process options raise
-(multi-GPU is ROADMAP.md Queue A item 5), and a config's ``sharding`` is read
-as one device.
+
+``--multihost`` runs a command on every rank of a ``torch.distributed``
+world (``parallel/mesh.py::initialize_multihost``): from ``torchrun``'s
+environment, or ``--coordinator host:port --num-processes N --process-id
+I``; alone on one process it changes nothing. ``fit`` then lays the ranks
+out as the config's ``sharding`` says (``data`` × ``view`` for a per-texel
+fit, ``data`` × 1 for the joint fit, as the JAX CLI does), every rank fits
+its block, and rank 0 alone writes the run directory.
 """
 
 from __future__ import annotations
@@ -30,8 +35,6 @@ import sys
 import time
 
 import numpy as np
-
-_MULTI_GPU = "multi-GPU runs are not ported yet (ROADMAP.md Queue A item 5)"
 
 
 def _build_scene(cfg):
@@ -59,13 +62,15 @@ def _host(x) -> np.ndarray:
 
 
 def _device(args):
-    from brdf_tpu_torch.device import resolve_device
+    """This rank's device of ``--device`` (a bare ``cuda`` is the rank's own card)."""
+    from brdf_tpu_torch.device import rank_device
 
-    return resolve_device(args.device)
+    return rank_device(args.device)
 
 
 def cmd_fit(args) -> int:
     from brdf_tpu_torch.configs import PRESETS, FitConfig, ModelConfig, SceneConfig, SolverConfig
+    from brdf_tpu_torch.parallel.mesh import process_index
     from brdf_tpu_torch.utils.logging import EventLog
 
     dev = _device(args)
@@ -87,7 +92,8 @@ def cmd_fit(args) -> int:
             ),
         )
     out = args.out or f"runs/{cfg.name}"
-    os.makedirs(out, exist_ok=True)
+    if process_index() == 0:
+        os.makedirs(out, exist_ok=True)
     log = EventLog(os.path.join(out, "events.jsonl"))
     try:
         _fit(args, cfg, dev, out, log)
@@ -100,6 +106,7 @@ def _fit(args, cfg, dev, out, log) -> None:
     import torch
 
     from brdf_tpu_torch.models.brdf import MODELS
+    from brdf_tpu_torch.parallel.mesh import make_mesh, process_index
     from brdf_tpu_torch.pipeline.fit import (
         build_face_problem,
         fit_joint_normalmap,
@@ -168,7 +175,7 @@ def _fit(args, cfg, dev, out, log) -> None:
         joint_kw = dict(
             opts=opts, max_tilt=cfg.model.max_tilt,
             engine=cfg.solver.engine,
-            device=dev,
+            mesh=make_mesh(data=cfg.sharding.data, view=1, device=dev),
             robust=cfg.solver.robust,
             robust_iters=cfg.solver.robust_iters,
         )
@@ -206,7 +213,7 @@ def _fit(args, cfg, dev, out, log) -> None:
             checkpointer = FitCheckpointer(os.path.join(out, "solver_ckpt"))
         report = fit_per_texel(
             problem, cfg.model.model, opts=opts,
-            device=dev,
+            mesh=make_mesh(data=cfg.sharding.data, view=cfg.sharding.view, device=dev),
             engine=cfg.solver.engine,
             mask_saturation=cfg.solver.mask_saturation,
             robust=cfg.solver.robust,
@@ -235,11 +242,13 @@ def _fit(args, cfg, dev, out, log) -> None:
             arrays["points"] = problem.points
             arrays["normals"] = problem.normals
 
+    if process_index() != 0:
+        return          # every rank holds the whole result: rank 0 writes it
     save_fit_state(out, 0, arrays, metadata={
         "config": dataclasses.asdict(cfg), "model": cfg.model.model,
         "mode": ("single" if not cfg.model.per_texel else
                  "joint" if cfg.model.joint_normalmap else "per_texel"),
-    })
+    }, process=(0, 1))
     with open(os.path.join(out, "config.json"), "w") as fh:
         fh.write(cfg.to_json())
     log("saved", out=out)
@@ -695,6 +704,8 @@ def cmd_presets(args) -> int:
 def cmd_info(args) -> int:
     import torch
 
+    from brdf_tpu_torch.parallel.mesh import process_count, process_index
+
     cuda = torch.cuda.is_available()
     print(json.dumps({
         "torch": torch.__version__,
@@ -703,7 +714,8 @@ def cmd_info(args) -> int:
         "device_count": torch.cuda.device_count() if cuda else 0,
         "devices": [torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
         if cuda else [],
-        "process_count": 1,
+        "process_count": process_count(),
+        "process_index": process_index(),
     }, indent=2))
     return 0
 
@@ -711,9 +723,10 @@ def cmd_info(args) -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="brdf_tpu_torch")
     p.add_argument("--multihost", action="store_true",
-                   help="one process per host over several GPUs (not ported yet)")
+                   help="run on every rank of a torch.distributed world (torchrun's "
+                        "environment, or --coordinator/--num-processes/--process-id)")
     p.add_argument("--coordinator", default=None,
-                   help="coordinator address host:port (multihost)")
+                   help="coordinator address host:port, or an init-method URL (multihost)")
     p.add_argument("--num-processes", type=int, default=None,
                    dest="num_processes")
     p.add_argument("--process-id", type=int, default=None, dest="process_id")
@@ -831,13 +844,25 @@ def main(argv=None) -> int:
     tt.set_defaults(fn=cmd_turntable)
 
     sub.add_parser("presets", help="list named presets").set_defaults(fn=cmd_presets)
-    sub.add_parser("info", help="torch and CUDA device info").set_defaults(fn=cmd_info)
+    info = sub.add_parser("info", help="torch, CUDA device and process info")
+    device_arg(info)
+    info.set_defaults(fn=cmd_info)
 
     args = p.parse_args(argv)
-    if (args.multihost or args.coordinator is not None or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError(_MULTI_GPU)
-    return args.fn(args)
+    started = False
+    if args.multihost:
+        import torch.distributed as dist
+
+        from brdf_tpu_torch.parallel.mesh import initialize_multihost
+
+        started = not dist.is_initialized() and initialize_multihost(
+            coordinator=args.coordinator, num_processes=args.num_processes,
+            process_id=args.process_id, device=getattr(args, "device", None))
+    try:
+        return args.fn(args)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -2,9 +2,9 @@
 """Configuration system: dataclass configs + JSON round-trip + named presets.
 
 The JAX package's configs, field for field, so that a ``config.json``
-written by either package's CLI loads in the other; ``ShardingConfig`` is
-read as one device until multi-GPU sharding lands (ROADMAP.md Queue A
-item 5). The presets' comments quote the JAX package's measurements on the
+written by either package's CLI loads in the other; ``ShardingConfig``
+lays a multi-rank run's ranks out (``cli.py``, ``parallel/mesh.py``). The
+presets' comments quote the JAX package's measurements on the
 reference scans, not the port's. Replaces the reference's configuration-by-hard-coding (model selector at
 ``main.cpp:43``, LM opts/bounds at ``brdfdata.cpp:1049-1057,1107-1117``, LED
 rig at ``brdfdata.cpp:683-797``, window size at ``main.cpp:22-23`` —

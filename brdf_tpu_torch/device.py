@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -15,4 +17,15 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
+    return dev
+
+
+def rank_device(device=None) -> torch.device:
+    """This rank's device: :func:`resolve_device`'s, with a bare ``cuda``
+    taken to ``cuda:{LOCAL_RANK % device_count}`` (``LOCAL_RANK`` is set by
+    ``torchrun``; 0 without it), so that the ranks of one host spread over
+    its cards."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count())
     return dev

@@ -22,9 +22,14 @@ pairwise tree. :func:`ne_layout` picks W from the kernel, m, the mode and V,
 and the wrappers and the plain versions both call it, so they sum in one
 order (``ops/lanegroup.py::group_sum``). So ``view_block`` and ``block_t``
 are gone from every signature here, nothing is padded, and the view count is
-unbounded by construction. There is no ``interpret`` either, and
-``axis_name`` (a view axis sharded over devices) raises: multi-GPU is
-ROADMAP.md Queue A items 5 and 11.
+unbounded by construction. There is no ``interpret`` either. With
+``axis_name`` (a view axis sharded over the ranks of the current mesh,
+``parallel/mesh.py``) each rank launches the kernel on its own views and the
+rows are ``axis_sum``med before the solve, as the JAX package ``psum``s them
+(``lm_pallas.py:538-539, 1154-1155``); its ``overlap_slices``, which cut the
+texels into chains so that one slice's all-reduce overlaps the next slice's
+kernel, stay out: the JAX package measured them slower at 16 views and left
+them off by default (``lm_pallas.py:500-509``).
 
 :func:`chunked_lm_loop` is ``_chunked_lm_loop``: the box-projected LM of
 ``ops/lm.py`` (one solve per iteration, Kanzow μ init, active-set freeze,
@@ -59,6 +64,7 @@ from brdf_tpu_torch.ops.lm import (
     solve_config,
 )
 from brdf_tpu_torch.ops.shading import SHADING_KERNELS
+from brdf_tpu_torch.parallel.mesh import axis_sum
 from brdf_tpu_torch.solver.lm import LMOptions, StopReason
 
 _EPS = 1e-12
@@ -533,13 +539,6 @@ def chunked_lm_loop(cfg: LMConfig, rows_fn, p_init: torch.Tensor, warm=None) -> 
                            stop=stop_out.to(torch.int32), g_inf=g_inf, mu=mu, nu=nu)
 
 
-def _no_axis_name(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"axis_name={axis_name!r}: a view axis sharded over devices is not ported yet "
-            "(ROADMAP.md Queue A items 5 and 11, multi-GPU)")
-
-
 def _views_major(x: torch.Tensor) -> torch.Tensor:
     """(T, V) → (V, T), contiguous float32."""
     return x.to(torch.float32).T.contiguous()
@@ -574,12 +573,14 @@ def lm_fit_chunked(
     loop in eager PyTorch. The contract of ``lm_fit_pallas_chunked`` without
     ``block_t``, ``view_block``, ``overlap_slices`` and ``interpret`` (the
     module docstring says why); ``weights=None`` takes the kernel variant that
-    reads no weights."""
-    _no_axis_name(axis_name)
+    reads no weights. ``axis_name`` sums the rows over the ranks of that axis
+    of the current mesh, each rank holding its own views."""
     cfg = config(model, opts, lower, upper)
     ang, y, w = _stack_lobe(model, angles, target, weights)
     p_rows = p0.to(torch.float32).T.contiguous()
-    return chunked_lm_loop(cfg, lambda mode, pr: ne_rows(model, mode, ang, y, w, pr), p_rows, warm)
+    return chunked_lm_loop(
+        cfg, lambda mode, pr: axis_sum(ne_rows(model, mode, ang, y, w, pr), axis_name), p_rows,
+        warm)
 
 
 def shading_value_and_grad(
@@ -657,8 +658,7 @@ def lm_fit_joint_chunked(
     offset partials from the geometry, so an iteration is two passes over the
     (L, V, y, w) stacks and nothing of size V·T is written. The contract of
     ``lm_fit_joint_pallas_chunked`` without ``block_t``, ``view_block`` and
-    ``interpret``."""
-    _no_axis_name(axis_name)
+    ``interpret``; ``axis_name`` as in :func:`lm_fit_chunked`."""
     if len(lower) != JOINT_M or len(upper) != JOINT_M:
         raise ValueError(f"joint fit has {JOINT_M} params; got bounds {lower}/{upper}")
     _check_joint(base_model, "full")
@@ -666,7 +666,8 @@ def lm_fit_joint_chunked(
     lv, y, w, frame = _joint_prep(geom, target, weights)
     p_rows = p0.to(torch.float32).T.contiguous()
     return chunked_lm_loop(
-        cfg, lambda mode, pr: joint_ne_rows(base_model, mode, lv, y, w, pr, frame), p_rows, warm)
+        cfg, lambda mode, pr: axis_sum(joint_ne_rows(base_model, mode, lv, y, w, pr, frame),
+                                       axis_name), p_rows, warm)
 
 
 def joint_value_and_grad(

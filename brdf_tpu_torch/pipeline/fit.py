@@ -18,6 +18,14 @@ over every texel's measurements, and ``FitReport.statistics`` gives the
 post-fit covariance statistics. ``shadow_weights=True`` in the builders
 zero-weights the (texel, light) pairs in cast shadow
 (``geometry/visibility.py``).
+
+The fits take ``mesh=`` (``parallel/mesh.py::make_mesh``) beside
+``device=``. Every rank builds the same host problem and calls the fit with
+the same arguments; the fit pads the folded batch to the mesh with
+zero-weight rows, keeps its rank's block (texels by data coordinate, views
+by view coordinate; the joint fits shard texels over every rank), fits it
+and gathers the blocks, so every rank returns the whole result, as a
+single-process JAX mesh does.
 """
 
 from __future__ import annotations
@@ -47,7 +55,18 @@ from brdf_tpu_torch.models.normalmap import (
 )
 from brdf_tpu_torch.ops.lm import PALLAS_MODELS
 from brdf_tpu_torch.ops.ne import lm_fit_joint_chunked, normal_equations
-from brdf_tpu_torch.parallel.fit import fit_texels
+from brdf_tpu_torch.parallel.fit import fit_texels, fit_texels_sharded
+from brdf_tpu_torch.parallel.mesh import (
+    ALL_AXES,
+    DATA_AXIS,
+    VIEW_AXIS,
+    Mesh,
+    axis_gather,
+    block_of,
+    process_count,
+    process_index,
+    use_mesh,
+)
 from brdf_tpu_torch.pipeline.diagnostics import estimate_view_gains
 from brdf_tpu_torch.pipeline.scene import Scene
 from brdf_tpu_torch.solver.init import linear_grid_init
@@ -444,48 +463,113 @@ def _merge_chunk(acc: LMResult, res: LMResult, active: torch.Tensor) -> LMResult
     )
 
 
+def _fit_device(device, mesh: Mesh | None) -> torch.device:
+    """Where a fit runs: ``mesh.device`` with a mesh, else ``device``."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None:
+        raise ValueError("pass device= or mesh=, not both: a mesh's fit runs on mesh.device")
+    return mesh.device
+
+
+def _pad_rows(x: torch.Tensor, pad: int, repeat: bool) -> torch.Tensor:
+    """``x`` with ``pad`` more rows: copies of its first (``repeat``) or zeros."""
+    if not pad:
+        return x
+    fill = x[:1] if repeat else torch.zeros_like(x[:1])
+    return torch.cat([x, fill.expand(pad, *x.shape[1:])])
+
+
+def _texel_view_block(mesh: Mesh, angles: ShadingAngles, target, weights):
+    """This rank's block of a folded ``(N, V)`` batch: padded with zero-weight
+    rows (the first row's angles, zero target) to a multiple of the data
+    axis, then the rows of its data coordinate and the views of its view
+    coordinate."""
+    n, v = target.shape
+    if v % mesh.view:
+        raise ValueError(f"{v} views do not split over a view axis of {mesh.view}")
+    pad = (-n) % mesh.data
+    d, vi = mesh.coords
+    rows, cols = block_of(n + pad, mesh.data, d), block_of(v, mesh.view, vi)
+
+    def cut(x, repeat):
+        return _pad_rows(x, pad, repeat)[rows, cols].contiguous()
+
+    return (ShadingAngles(*(None if a is None else cut(a, True) for a in angles)),
+            cut(target, False), cut(weights, False))
+
+
+def _gather_rows(res: LMResult, mesh: Mesh | None, axis, n: int | None = None) -> LMResult:
+    """Every rank's block of ``res`` along ``axis`` in rank order, cut to ``n``
+    rows; ``res`` itself without a mesh."""
+    if mesh is None:
+        return res
+    with use_mesh(mesh):
+        full = LMResult(*(axis_gather(x, axis) for x in res))
+    return full if n is None else LMResult(*(x[:n] for x in full))
+
+
+def _fit_block(model, angles, target, dev, mesh, **kw) -> LMResult:
+    if mesh is None:
+        return fit_texels(model, angles, target, device=dev, **kw)
+    return fit_texels_sharded(model, angles, target, mesh, **kw)
+
+
 def _fit_chunked(
     model, angles, target, dev, opts, weights, engine, checkpointer,
-    chunk_iters, resume, lower=None, upper=None,
+    chunk_iters, resume, lower=None, upper=None, mesh=None,
 ) -> LMResult:
     """Run the fit in chunks of ``chunk_iters`` outer iterations,
     checkpointing the full solver state (p, μ, ν, stop, counters) between
     chunks and resuming from the newest checkpoint when it fits this problem.
-    Already-terminated lanes short-circuit in later chunks."""
+    Already-terminated lanes short-circuit in later chunks.
+
+    With a mesh ``angles``/``target``/``weights`` are the rank's block; after
+    each chunk the blocks are gathered, whether to go on is decided on the
+    whole batch (so every rank takes the same number of chunks), and each
+    process writes its share of the rows as its checkpoint shard
+    (``utils/checkpoint.py``). Returns the rank's block."""
     t = target.shape[0]
-    acc: LMResult | None = None
+    data = 1 if mesh is None else mesh.data
+    rows = block_of(t * data, data, 0 if mesh is None else mesh.coords[0])
+    full: LMResult | None = None
     done = 0
     if resume and latest_step(checkpointer.path) is not None:
         arrays, meta = checkpointer.restore()
-        if meta.get("model") == model and arrays["p"].shape[0] == t:
-            acc = LMResult(**{k: torch.as_tensor(np.asarray(arrays[k]), device=dev)
-                              for k in LMResult._fields})
+        if meta.get("model") == model and arrays["p"].shape[0] == t * data:
+            full = LMResult(**{k: torch.as_tensor(np.asarray(arrays[k]), device=dev)
+                               for k in LMResult._fields})
             done = int(meta["iters_done"])
 
+    acc = None
     while done < opts.itmax:
-        if acc is None:
+        if full is None:
             p0, warm, active = None, None, torch.ones(t, dtype=torch.bool, device=dev)
         else:
+            if not bool((full.warm_state()[2] == int(StopReason.RUNNING)).any()):
+                break
+            acc = LMResult(*(x[rows] for x in full))
             warm = acc.warm_state()
             active = warm[2] == int(StopReason.RUNNING)
-            if not bool(active.any()):
-                break
             p0 = acc.p
         step = min(chunk_iters, opts.itmax - done)
-        res = fit_texels(
-            model, angles, target, opts=opts._replace(itmax=step), weights=weights, p0=p0,
-            engine=engine, warm_state=warm, lower=lower, upper=upper, device=dev,
+        res = _fit_block(
+            model, angles, target, dev, mesh, opts=opts._replace(itmax=step), weights=weights,
+            p0=p0, engine=engine, warm_state=warm, lower=lower, upper=upper,
         )
-        acc = res if acc is None else _merge_chunk(acc, res, active)
+        acc = res if full is None else _merge_chunk(acc, res, active)
         done += step
+        full = _gather_rows(acc, mesh, DATA_AXIS)
+        share = process_index(), process_count()
         checkpointer.maybe_save(
             done,
-            {k: getattr(acc, k).detach().cpu().numpy() for k in LMResult._fields},
+            {k: np.array_split(getattr(full, k).detach().cpu().numpy(), share[1])[share[0]]
+             for k in LMResult._fields},
             {"model": model, "iters_done": done},
         )
-        if not bool((acc.stop == int(StopReason.MAX_ITERATIONS)).any()):
+        if not bool((full.stop == int(StopReason.MAX_ITERATIONS)).any()):
             break
-    return acc
+    return LMResult(*(x[rows] for x in full))
 
 
 def fit_per_texel(
@@ -502,11 +586,16 @@ def fit_per_texel(
     resume: bool = True,
     lower=None,
     upper=None,
+    mesh: Mesh | None = None,
 ) -> FitReport:
     """Fit every (texel, channel) independently — T·C problems, batched.
 
-    The arguments are those of the JAX ``fit_per_texel`` with ``mesh=``
-    replaced by ``device=`` (``cuda`` unless the caller passes another).
+    The arguments are those of the JAX ``fit_per_texel``, and ``device=``
+    (``cuda`` unless the caller passes another) runs it on one device. With
+    ``mesh=`` (``parallel/mesh.py::make_mesh``, on ``mesh.device``) every
+    rank of the mesh calls it with the same problem: each fits its block of
+    the folded batch (``parallel/fit.py::fit_texels_sharded``) and every rank
+    returns the whole report. The view count must divide over the view axis.
     ``engine`` defaults to "auto" as there: the fused LM kernel on a CUDA
     device, the eager LM tier on the CPU (``parallel/fit.py`` lists the
     engines). ``mask_saturation`` zero-weights clipped measurements;
@@ -522,7 +611,7 @@ def fit_per_texel(
     first from the parameters the last one returned (K1, K8 and
     ``varpro_fit_fresnel_lin`` all skip their grid for a start).
     """
-    dev = resolve_device(device)
+    dev = _fit_device(device, mesh)
     spec = MODELS[model]
     if spec.tangent and problem.angles.cos_th is None:
         if problem.geometry is None:
@@ -549,25 +638,31 @@ def fit_per_texel(
     w_rep = torch.as_tensor(problem.weights).to(dev).repeat_interleave(c, dim=0)
     if mask_saturation:
         w_rep = w_rep * saturation_weights(target)
+    if mesh is not None:
+        ang_rep, target, w_rep = _texel_view_block(mesh, ang_rep, target, w_rep)
+    view_axis = VIEW_AXIS if mesh is not None and mesh.view > 1 else None
 
     if checkpointer is not None and chunk_iters > 0:
         res = _fit_chunked(
             model, ang_rep, target, dev, opts, w_rep, engine, checkpointer, chunk_iters,
-            resume, lower=lower, upper=upper,
+            resume, lower=lower, upper=upper, mesh=mesh,
         )
         if robust is not None:
             for _ in range(robust_iters):
-                w_irls = robust_weights(spec.fn(res.p, ang_rep) - target, w_rep, kind=robust)
-                res = fit_texels(
-                    model, ang_rep, target, opts=opts, weights=w_irls, p0=res.p, engine=engine,
-                    lower=lower, upper=upper, device=dev,
+                with use_mesh(mesh):
+                    w_irls = robust_weights(spec.fn(res.p, ang_rep) - target, w_rep, kind=robust,
+                                            axis_name=view_axis)
+                res = _fit_block(
+                    model, ang_rep, target, dev, mesh, opts=opts, weights=w_irls, p0=res.p,
+                    engine=engine, lower=lower, upper=upper,
                 )
     else:
-        res = fit_texels(
-            model, ang_rep, target, opts=opts, weights=w_rep, engine=engine,
+        res = _fit_block(
+            model, ang_rep, target, dev, mesh, opts=opts, weights=w_rep, engine=engine,
             lower=lower, upper=upper, robust=robust,
-            robust_iters=robust_iters if robust else 0, device=dev,
+            robust_iters=robust_iters if robust else 0,
         )
+    res = _gather_rows(res, mesh, DATA_AXIS, t * c)
     params = res.p.reshape(t, c, spec.n_params)
     result = LMResult(*(x.reshape(t, c) if x.ndim == 1 else x for x in res))
     return FitReport(params=params, face_ids=problem.face_ids, result=result, model=model)
@@ -626,6 +721,7 @@ def fit_joint_normalmap(
     mask_saturation: bool = True,
     robust: str | None = None,
     robust_iters: int = 2,
+    mesh: Mesh | None = None,
 ):
     """Jointly fit per-texel normals + material: m = 9 params (RGB kd, RGB ks,
     shared shape, tangent normal offset; m = 11 around an anisotropic base),
@@ -652,14 +748,18 @@ def fit_joint_normalmap(
     the base lobe has one shape parameter, else "xla". The m = 11 fit runs on
     "xla" only.
 
-    The arguments are those of the JAX ``fit_joint_normalmap`` with ``mesh=``
-    replaced by ``device=`` (``cuda`` unless the caller passes another).
+    The arguments are those of the JAX ``fit_joint_normalmap``; ``device=``
+    (``cuda`` unless the caller passes another) runs it on one device. With
+    ``mesh=`` every rank of the mesh calls it with the same problem, the
+    texels are sharded over every rank (whatever the mesh's shape, as the
+    JAX package shards them over every axis), and every rank returns the
+    whole result.
     """
     if engine not in JOINT_ENGINES:
         raise ValueError(f"unknown engine {engine!r}; choose from {JOINT_ENGINES}")
     if problem.geometry is None:
         raise ValueError("joint fit requires build_face_problem(with_geometry=True)")
-    dev = resolve_device(device)
+    dev = _fit_device(device, mesh)
     spec = joint_spec(base_model, max_tilt=max_tilt)
     if opts is None:
         opts = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=40)
@@ -685,11 +785,23 @@ def fit_joint_normalmap(
     weights = w_base[..., None].repeat(1, 1, c) if w_base.ndim == 2 else w_base
     if mask_saturation:
         weights = weights * saturation_weights(intensity)
+    chan = None if channel_report is None else _as_tensor(channel_report.params, dev, dtype)
+    t = intensity.shape[0]
+    if mesh is not None:
+        # this rank's block of the texels, padded with zero-weight copies of
+        # the first texel to a multiple of every rank
+        pad = (-t) % mesh.world
+        rows = block_of(t + pad, mesh.world, mesh.rank)
+
+        def cut(x, repeat=True):
+            return None if x is None else _pad_rows(x, pad, repeat)[rows].contiguous()
+
+        angles = ShadingAngles(*map(cut, angles))
+        geometry = ShadingGeometry(*map(cut, geometry))
+        intensity, weights, chan = cut(intensity), cut(weights, False), cut(chan)
 
     with torch.no_grad():
-        if channel_report is not None:
-            chan = _as_tensor(channel_report.params, dev, dtype)           # (T, 3, m_base)
-        else:
+        if chan is None:
             chan = torch.stack(
                 [linear_grid_init(base_model, angles, intensity[..., ch], weights=weights[..., ch])
                  for ch in range(c)], dim=1)
@@ -708,7 +820,7 @@ def fit_joint_normalmap(
             w_irls = robust_weights(resid.permute(0, 2, 1), weights.permute(0, 2, 1),
                                     kind=robust).permute(0, 2, 1)
             res = solve(res.p, w_irls)
-    return res, spec
+    return _gather_rows(res, mesh, ALL_AXES, t), spec
 
 
 def fit_joint_normalmap_with_gains(

@@ -3,7 +3,11 @@
 Port of ``brdf_tpu/solver/init.py``: every lobe is linear in its leading
 ``ModelSpec.linear`` parameters given its shape parameters, so for each
 point of a small shape grid the 1- or 2-variable NNLS is solved per texel in
-closed form, scored by its χ², and the best point is the start.
+closed form, scored by its χ², and the best point is the start. With
+``axis_name`` (a view axis sharded over the ranks of the current mesh,
+``parallel/mesh.py``) every view sum is an ``axis_sum`` of the ranks'
+partial sums, so each rank starts where the unsharded init would; the JAX
+package gets the same from XLA's partitioner.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ import numpy as np
 import torch
 
 from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles
+from brdf_tpu_torch.parallel.mesh import axis_sum
 
 
 def default_shape_grid(model: str, num: int = 16) -> np.ndarray:
@@ -64,15 +69,18 @@ def _nnls2(aa, ab, bb, ay, by):
     return torch.where(interior_ok, x0, edge0), torch.where(interior_ok, x1, edge1)
 
 
-def _solve_linear(spec, angles, weights, ty, shape_vals):
+def _solve_linear(spec, angles, weights, ty, shape_vals, axis_name=None):
     """Closed-form linear pair at per-texel (or broadcast) shape values
     ``shape_vals`` (..., k) → (params (..., m), cost (...))."""
+    def vsum(x):
+        return axis_sum(torch.sum(x, -1), axis_name)
+
     one = shape_vals.new_ones(shape_vals.shape[:-1] + (1,))
     zero = torch.zeros_like(one)
     if spec.linear == 1:
         a = spec.fn(torch.cat([one, shape_vals], -1), angles)
-        aa = torch.sum(a * weights * a, -1)
-        ay = torch.sum(a * ty, -1)
+        aa = vsum(a * weights * a)
+        ay = vsum(a * ty)
         kd = torch.clamp(ay / torch.clamp(aa, min=1e-30), min=0.0)
         cost = kd * kd * aa - 2.0 * kd * ay
         lin = [kd]
@@ -81,11 +89,11 @@ def _solve_linear(spec, angles, weights, ty, shape_vals):
         b = spec.fn(torch.cat([zero, one, shape_vals], -1), angles)
         aw = a * weights
         bw = b * weights
-        aa = torch.sum(aw * a, -1)
-        ab = torch.sum(aw * b, -1)
-        bb = torch.sum(bw * b, -1)
-        ay = torch.sum(a * ty, -1)
-        by = torch.sum(b * ty, -1)
+        aa = vsum(aw * a)
+        ab = vsum(aw * b)
+        bb = vsum(bw * b)
+        ay = vsum(a * ty)
+        by = vsum(b * ty)
         kd, ks = _nnls2(aa, ab, bb, ay, by)
         cost = kd * kd * aa + ks * ks * bb + 2 * kd * ks * ab - 2 * (kd * ay + ks * by)
         lin = [kd, ks]
@@ -100,6 +108,7 @@ def linear_grid_init(
     shape_grid: np.ndarray | None = None,
     weights: torch.Tensor | None = None,
     refine: bool = False,
+    axis_name: str | None = None,
 ) -> torch.Tensor:
     """Best (kd, ks, shape…) start per texel from a shape-parameter grid.
 
@@ -126,7 +135,7 @@ def linear_grid_init(
     best_cost = torch.full(target.shape[:-1], float("inf"), dtype=dtype, device=target.device)
     costs = []
     for g in range(grid.shape[0]):
-        p_gi, cost = _solve_linear(spec, angles, weights, ty, grid[g])
+        p_gi, cost = _solve_linear(spec, angles, weights, ty, grid[g], axis_name)
         better = cost < best_cost
         best_p = torch.where(better[..., None], p_gi, best_p)
         best_cost = torch.where(better, cost, best_cost)
@@ -134,7 +143,8 @@ def linear_grid_init(
 
     if refine and k == 1 and shape_grid.shape[0] >= 3:
         best_p, best_cost = _parabolic_refine(
-            spec, angles, weights, ty, shape_grid, torch.stack(costs), best_p, best_cost
+            spec, angles, weights, ty, shape_grid, torch.stack(costs), best_p, best_cost,
+            axis_name,
         )
     lo = torch.as_tensor(spec.lower, dtype=dtype, device=target.device)
     hi = torch.as_tensor(spec.upper, dtype=dtype, device=target.device)
@@ -154,7 +164,8 @@ def _grid_is_geometric(g1: np.ndarray) -> bool:
     return bool(log_dev < lin_dev)
 
 
-def _parabolic_refine(spec, angles, weights, ty, shape_grid, costs, best_p, best_cost):
+def _parabolic_refine(spec, angles, weights, ty, shape_grid, costs, best_p, best_cost,
+                      axis_name=None):
     """Parabola through the best grid point and its two neighbours, in the
     grid's own coordinate; edge lanes keep their grid value."""
     g1 = np.ravel(np.asarray(shape_grid, np.float64))
@@ -177,7 +188,7 @@ def _parabolic_refine(spec, angles, weights, ty, shape_grid, costs, best_p, best
     t_ref = torch.where(edge, tgv[i], t0 + torch.abs(delta) * (tn - t0))
     shape_ref = torch.exp(t_ref) if use_log else t_ref
 
-    p_ref, cost_ref = _solve_linear(spec, angles, weights, ty, shape_ref[..., None])
+    p_ref, cost_ref = _solve_linear(spec, angles, weights, ty, shape_ref[..., None], axis_name)
     better = cost_ref < best_cost
     return (
         torch.where(better[..., None], p_ref, best_p),

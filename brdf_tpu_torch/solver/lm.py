@@ -15,9 +15,11 @@ forward-mode autodiff or the ``fd``/``fd_central``/``secant`` Jacobians,
 ``dscl``, the five damped-system solvers (``LMOptions.linsolver``), a
 ``data_axes`` per leaf of ``data``, ``warm_state`` and all counters;
 :func:`levmar`, :func:`levmar_lec`, :func:`fd_jacobian`,
-:func:`check_jacobian` and :func:`chkjac`. A residual axis sharded over
-devices (``LMOptions.axis_name``) raises ``NotImplementedError``: multi-GPU
-is ROADMAP.md Queue A item 5.
+:func:`check_jacobian` and :func:`chkjac`. With ``LMOptions.axis_name`` the
+residual axis is sharded over the ranks of that axis of the current mesh
+(``parallel/mesh.py::use_mesh``): χ², JᵀJ and Jᵀe are per-rank partial sums
+added by ``axis_sum``, and the solve and damping control after them are the
+same bits on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from brdf_tpu_torch.parallel.mesh import axis_sum
 from brdf_tpu_torch.solver import axb
 
 
@@ -201,11 +204,13 @@ def levmar_bc(
       dscl: optional ``(m,)`` positive diagonal scaling: the solve runs on
         ``p/dscl`` (bounds, steps and the eps2 test in scaled variables) and
         unscales the result, levmar's ``dscl`` (``lmbc_core.c:360-366``).
+
+    ``opts.axis_name`` names the axis of the current mesh over which each
+    problem's residuals are split (the ``"view"`` axis of
+    ``parallel/fit.py::fit_texels_sharded``): every sum over the residual
+    axis is then an ``axis_sum`` of the ranks' partial sums, as the JAX
+    package ``psum``s them.
     """
-    if opts.axis_name is not None:
-        raise NotImplementedError(
-            f"axis_name={opts.axis_name!r}: a residual axis sharded over devices is not "
-            "ported yet (ROADMAP.md Queue A item 5, multi-GPU)")
     if opts.damping != "add":
         raise ValueError("damping='marquardt' is an option of the fused tier (ops/lm.py) only")
     if opts.linsolver not in LINSOLVERS:
@@ -283,10 +288,14 @@ def levmar_bc(
     def code(c: StopReason, like: torch.Tensor) -> torch.Tensor:
         return torch.full_like(like, int(c))
 
+    def rsum(x: torch.Tensor) -> torch.Tensor:
+        """A sum over the residual axis, across the ranks of ``axis_name``."""
+        return axis_sum(x, opts.axis_name)
+
     with torch.no_grad():
         p = proj(p0)
         e = res_b(p, data)
-        chi2 = torch.sum(e * e, -1)
+        chi2 = rsum(torch.sum(e * e, -1))
         chi2_0 = chi2
         stop = torch.where(torch.isfinite(chi2), code(StopReason.RUNNING, stop_w),
                            code(StopReason.INVALID_VALUES, stop_w))
@@ -329,8 +338,8 @@ def levmar_bc(
             else:
                 j = jac_b(p, data)                              # (B, n, m)
                 dj = torch.ones_like(njev)
-            jtj = j.transpose(-1, -2) @ j
-            g = (j.transpose(-1, -2) @ e[..., None])[..., 0]
+            jtj = rsum(j.transpose(-1, -2) @ j)
+            g = rsum((j.transpose(-1, -2) @ e[..., None])[..., 0])
 
             # projected-gradient convergence measure
             gi = torch.amax(torch.abs(p - proj(p - g)), -1)
@@ -363,7 +372,7 @@ def levmar_bc(
                 small_dp = dp_norm2 <= opts.eps2 * opts.eps2 * p_norm2
 
                 enew = res_b(pnew, data)
-                chi2new = torch.sum(enew * enew, -1)
+                chi2new = rsum(torch.sum(enew * enew, -1))
                 finite = torch.isfinite(chi2new)
                 df = t_chi2 - chi2new
                 # predicted reduction −(2 gᵀδ + δᵀ JᵀJ δ), valid for a projected step

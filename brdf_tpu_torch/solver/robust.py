@@ -2,11 +2,17 @@
 
 Port of ``brdf_tpu/solver/robust.py``: the same ψ-weights, the same
 per-texel scale (masked median by sorting with +inf on masked entries).
+With ``axis_name`` (a view axis sharded over the ranks of the current mesh,
+``parallel/mesh.py``) the median gathers a texel's residuals from every rank
+of the axis first, so it sorts the same views the unsharded fit sorts; the
+JAX package gets the same from XLA's partitioner.
 """
 
 from __future__ import annotations
 
 import torch
+
+from brdf_tpu_torch.parallel.mesh import axis_gather
 
 _MAD_TO_SIGMA = 1.4826
 _TUNING = {"huber": 1.345, "cauchy": 2.385, "tukey": 4.685}
@@ -35,13 +41,17 @@ def robust_weights(
     kind: str = "huber",
     tuning: float | None = None,
     min_sigma: float = 1e-3,
+    axis_name: str | None = None,
 ) -> torch.Tensor:
     """IRLS weights √(ψ(r)/r) per measurement, composed with ``base_weights``;
-    the robust scale is estimated per texel over its views (last axis)."""
+    the robust scale is estimated per texel over its views (last axis, and
+    across the ranks of ``axis_name``)."""
     if kind not in _TUNING:
         raise ValueError(f"unknown robust kind {kind!r}")
     c = _TUNING[kind] if tuning is None else tuning
-    sigma = torch.clamp(_sigma(residuals, base_weights), min=min_sigma)
+    sigma = _sigma(axis_gather(residuals, axis_name, dim=-1),
+                   axis_gather(base_weights, axis_name, dim=-1))
+    sigma = torch.clamp(sigma, min=min_sigma)
     u = torch.abs(residuals) / (c * sigma[..., None])
     one = torch.ones_like(u)
     if kind == "huber":

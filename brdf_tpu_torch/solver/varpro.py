@@ -1,7 +1,6 @@
 """Variable-projection (VarPro) solver for separable lobe fits, unfused tier.
 
-Port of ``brdf_tpu/solver/varpro.py`` (its ``axis_name`` view sharding
-dropped). Each separable lobe is ``I = kd·a + ks·b(shape)``; the linear pair
+Port of ``brdf_tpu/solver/varpro.py``. Each separable lobe is ``I = kd·a + ks·b(shape)``; the linear pair
 is eliminated in closed form by :func:`_bvls2` and the profiled objective is
 minimised by a safeguarded Newton iteration with Kaufman's projected
 curvature and a trust-clipped accept-if-better step:
@@ -16,6 +15,12 @@ curvature and a trust-clipped accept-if-better step:
 - :func:`varpro_fit_fresnel_lin`, ``cook_torrance_fresnel`` with both
   Fresnel scale directions profiled out by the 3-variable NNLS
   :func:`_nnls3`, leaving 1-D Newton over the roughness.
+
+Each takes ``axis_name``: the axis of the current mesh
+(``parallel/mesh.py::use_mesh``) over which the view axis is sharded. Every
+view sum (Gram entries, χ², φ', curvature) is then an ``axis_sum`` of the
+ranks' partial sums, as the JAX package ``psum``s them, and so is the grid
+init's when the fit makes its own start.
 """
 
 from __future__ import annotations
@@ -26,9 +31,15 @@ import numpy as np
 import torch
 
 from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles
+from brdf_tpu_torch.parallel.mesh import axis_sum
 from brdf_tpu_torch.solver.init import linear_grid_init
 
 _TINY = 1e-30
+
+
+def _view_sum(axis_name):
+    """Σ over the last (view) axis, across the ranks of ``axis_name``."""
+    return lambda x: axis_sum(torch.sum(x, -1), axis_name)
 
 # separable m=3 lobes → σ transform: log for the exponent, identity for the
 # bounded roughness parameters
@@ -103,6 +114,7 @@ def varpro_fit(
     iters: int = 8,
     lower: tuple | None = None,
     upper: tuple | None = None,
+    axis_name: str | None = None,
 ) -> VarProResult:
     """Fit T independent separable lobes by profiled 1-D Newton."""
     if model not in _SEPARABLE:
@@ -117,9 +129,11 @@ def varpro_fit(
         weights = torch.ones_like(target)
     w = weights.to(dtype)
     use_log, sig_floor, s_lo, s_hi = sigma_domain(model, lo, hi)
+    rsum = _view_sum(axis_name)
 
     if p0 is None:
-        p0 = linear_grid_init(model, angles, target, weights=w, refine=True)
+        p0 = linear_grid_init(model, angles, target, weights=w, refine=True,
+                              axis_name=axis_name)
     sigma0 = torch.clamp(p0[..., 2], sig_floor, float(hi[2]))
     t0 = torch.log(sigma0) if use_log else sigma0
 
@@ -129,8 +143,8 @@ def varpro_fit(
     mid = torch.tensor([1.0, 0.0, lo[2] + 0.5 * (hi[2] - lo[2])], dtype=dtype,
                        device=target.device)
     aw = spec.fn(mid, angles) * w
-    aa = torch.sum(aw * aw, -1)
-    ay = torch.sum(aw * yw, -1)
+    aa = rsum(aw * aw)
+    ay = rsum(aw * yw)
     l0, u0, l1, u1 = float(lo[0]), float(hi[0]), float(lo[1]), float(hi[1])
 
     def basis_b(sig):
@@ -144,22 +158,22 @@ def varpro_fit(
             db = db * sig[..., None]
         bw = b * w
         dbw = db * w
-        ab = torch.sum(aw * bw, -1)
-        bb = torch.sum(bw * bw, -1)
-        by = torch.sum(bw * yw, -1)
+        ab = rsum(aw * bw)
+        bb = rsum(bw * bw)
+        by = rsum(bw * yw)
         kd, ks = _bvls2(aa, ab, bb, ay, by, l0, u0, l1, u1)
         rw = yw - kd[..., None] * aw - ks[..., None] * bw
-        chi2 = torch.sum(rw * rw, -1)
-        g = -2.0 * ks * torch.sum(rw * dbw, -1)
-        a_db = torch.sum(aw * dbw, -1)
-        b_db = torch.sum(bw * dbw, -1)
+        chi2 = rsum(rw * rw)
+        g = -2.0 * ks * rsum(rw * dbw)
+        a_db = rsum(aw * dbw)
+        b_db = rsum(bw * dbw)
         det = aa * bb - ab * ab
         det_ok = det > _TINY
         det_s = torch.where(det_ok, det, torch.ones_like(det))
         zero = torch.zeros_like(det)
         x1 = torch.where(det_ok, (bb * a_db - ab * b_db) / det_s, zero)
         x2 = torch.where(det_ok, (aa * b_db - ab * a_db) / det_s, zero)
-        proj = torch.sum(dbw * dbw, -1) - x1 * a_db - x2 * b_db
+        proj = rsum(dbw * dbw) - x1 * a_db - x2 * b_db
         h = 2.0 * ks * ks * torch.clamp(proj, min=0.0)
         return chi2, g, h, kd, ks
 
@@ -255,6 +269,7 @@ def varpro_fit_nd(
     iters: int = 10,
     lower: tuple | None = None,
     upper: tuple | None = None,
+    axis_name: str | None = None,
 ) -> VarProResult:
     """Variable projection for separable lobes with a d-dimensional shape
     space (``I = kd·a + ks·b(shape)``, d = n_params − 2): 2-D Newton over
@@ -277,6 +292,7 @@ def varpro_fit_nd(
         weights = torch.ones_like(target)
     w = weights.to(dtype)
     yw = target * w
+    rsum = _view_sum(axis_name)
 
     lo_s_t, hi_s_t = shape_box(model, lo, hi)
     lo_s_np, hi_s_np = np.asarray(lo_s_t), np.asarray(hi_s_t)
@@ -285,14 +301,14 @@ def varpro_fit_nd(
     hi_s = torch.tensor(hi_s_np, dtype=dtype, device=dev)
 
     if p0 is None:
-        p0 = linear_grid_init(model, angles, target, weights=weights)
+        p0 = linear_grid_init(model, angles, target, weights=weights, axis_name=axis_name)
     shape0 = torch.minimum(torch.maximum(p0[..., 2:2 + d].to(dtype), lo_s), hi_s)   # (T, d)
 
     # diffuse basis kd·cos_ln: shape-independent (mid-box shape values)
     mid = tuple(0.5 * (lo_s_np[j] + hi_s_np[j]) for j in range(d))
     aw = spec.fn(torch.tensor((1.0, 0.0) + mid, dtype=dtype, device=dev), angles) * w
-    aa = torch.sum(aw * aw, -1)
-    ay = torch.sum(aw * yw, -1)
+    aa = rsum(aw * aw)
+    ay = rsum(aw * yw)
     l0, u0, l1, u1 = float(lo[0]), float(hi[0]), float(lo[1]), float(hi[1])
 
     def basis_b(shape):
@@ -307,12 +323,12 @@ def varpro_fit_nd(
             e[..., j] = 1.0
             tangents.append(torch.func.jvp(basis_b, (shape,), (e,))[1])
         bw = b * w
-        ab = torch.sum(aw * bw, -1)
-        bb = torch.sum(bw * bw, -1)
-        by = torch.sum(bw * yw, -1)
+        ab = rsum(aw * bw)
+        bb = rsum(bw * bw)
+        by = rsum(bw * yw)
         kd, ks = _bvls2(aa, ab, bb, ay, by, l0, u0, l1, u1)
         rw = yw - kd[..., None] * aw - ks[..., None] * bw
-        chi2 = torch.sum(rw * rw, -1)
+        chi2 = rsum(rw * rw)
         det = aa * bb - ab * ab
         det_ok = det > 1e-30
         det_s = torch.where(det_ok, det, torch.ones_like(det))
@@ -321,8 +337,8 @@ def varpro_fit_nd(
         def project(u):
             # Kaufman: only the component of ks·∂b ⊥ span{a, b} bends the
             # profiled objective (the linear pair re-solves as the shape moves)
-            ua = torch.sum(u * aw, -1)
-            ub = torch.sum(u * bw, -1)
+            ua = rsum(u * aw)
+            ub = rsum(u * bw)
             x1 = torch.where(det_ok, (bb * ua - ab * ub) / det_s, zero)
             x2 = torch.where(det_ok, (aa * ub - ab * ua) / det_s, zero)
             return u - x1[..., None] * aw - x2[..., None] * bw
@@ -330,9 +346,9 @@ def varpro_fit_nd(
         g, cols = [], []
         for j in range(d):
             u = ks[..., None] * tangents[j] * w
-            g.append(-2.0 * torch.sum(rw * u, -1))
+            g.append(-2.0 * rsum(rw * u))
             cols.append(project(u))
-        h = {(j, k): 2.0 * torch.sum(cols[j] * cols[k], -1) for j in range(d) for k in range(j, d)}
+        h = {(j, k): 2.0 * rsum(cols[j] * cols[k]) for j in range(d) for k in range(j, d)}
         return chi2, g, h, kd, ks
 
     shape = shape0
@@ -379,13 +395,14 @@ def varpro_fit_fresnel(
     iters: int = 10,
     lower: tuple | None = None,
     upper: tuple | None = None,
+    axis_name: str | None = None,
 ) -> VarProResult:
     """2-D profiled Newton over (roughness, f0) for ``cook_torrance_fresnel``:
     :func:`varpro_fit_nd`'s d=2 instance under its own name. The ks·F(f0)
     product couples the two specular scales, which
     :func:`varpro_fit_fresnel_lin` removes exactly."""
     return varpro_fit_nd("cook_torrance_fresnel", angles, target, weights=weights, p0=p0,
-                         iters=iters, lower=lower, upper=upper)
+                         iters=iters, lower=lower, upper=upper, axis_name=axis_name)
 
 
 def _nnls3(g00, g01, g02, g11, g12, g22, r0, r1, r2):
@@ -464,6 +481,7 @@ def varpro_fit_fresnel_lin(
     grid_points: int = 8,
     lower: tuple | None = None,
     upper: tuple | None = None,
+    axis_name: str | None = None,
 ) -> VarProResult:
     """Scale-profiled VarPro for ``cook_torrance_fresnel``.
 
@@ -491,10 +509,11 @@ def varpro_fit_fresnel_lin(
     s_lo = float(max(lo[2], 1e-3))
     s_hi = float(hi[2])
     span = s_hi - s_lo
+    rsum = _view_sum(axis_name)
 
     aw = spec.fn(torch.tensor([1.0, 0.0, 0.5, 0.5], dtype=dtype, device=dev), angles) * w
-    g00 = torch.sum(aw * aw, -1)
-    r0 = torch.sum(aw * yw, -1)
+    g00 = rsum(aw * aw)
+    r0 = rsum(aw * yw)
 
     def bases(rho):
         """ρ (T,) → (b₀, b₁), each (T, V): the specular lobe at f0 = 1 (F ≡ 1)
@@ -509,17 +528,17 @@ def varpro_fit_fresnel_lin(
         b0, b1 = bases(rho)
         b0w = b0 * w
         b1w = b1 * w
-        g01 = torch.sum(aw * b0w, -1)
-        g02 = torch.sum(aw * b1w, -1)
-        g11 = torch.sum(b0w * b0w, -1)
-        g12 = torch.sum(b0w * b1w, -1)
-        g22 = torch.sum(b1w * b1w, -1)
-        r1 = torch.sum(b0w * yw, -1)
-        r2 = torch.sum(b1w * yw, -1)
+        g01 = rsum(aw * b0w)
+        g02 = rsum(aw * b1w)
+        g11 = rsum(b0w * b0w)
+        g12 = rsum(b0w * b1w)
+        g22 = rsum(b1w * b1w)
+        r1 = rsum(b0w * yw)
+        r2 = rsum(b1w * yw)
         kd, s, q = _nnls3(g00, g01, g02, g11, g12, g22, r0, r1, r2)
         kd = torch.clamp(kd, float(lo[0]), float(hi[0]))
         rw = yw - kd[..., None] * aw - s[..., None] * b0w - q[..., None] * b1w
-        chi2 = torch.sum(rw * rw, -1)
+        chi2 = rsum(rw * rw)
         return chi2, kd, s, q, (b0w, b1w, rw, g01, g02, g11, g12, g22)
 
     def eval_at(rho):
@@ -532,10 +551,10 @@ def varpro_fit_fresnel_lin(
 
         du = torch.func.jvp(sb, (rho,), (torch.ones_like(rho),))[1]
         uw = du * w
-        g = -2.0 * torch.sum(rw * uw, -1)
-        ua = torch.sum(uw * aw, -1)
-        ub0 = torch.sum(uw * b0w, -1)
-        ub1 = torch.sum(uw * b1w, -1)
+        g = -2.0 * rsum(rw * uw)
+        ua = rsum(uw * aw)
+        ub0 = rsum(uw * b0w)
+        ub1 = rsum(uw * b1w)
         # the in-span component's coefficients c solve G c = t, t = (ua, ub0,
         # ub1); _solve_damped_sym returns −(G + λ)⁻¹·arg, so it gets −t.
         # ‖P⊥ u‖² = ‖u‖² − cᵀt
@@ -543,7 +562,7 @@ def varpro_fit_fresnel_lin(
             {(0, 0): g00, (0, 1): g01, (0, 2): g02, (1, 1): g11, (1, 2): g12, (2, 2): g22},
             [-ua, -ub0, -ub1], 3, 1e-7 * (g00 + g11 + g22) + _TINY,
         )[0]
-        proj2 = torch.sum(uw * uw, -1) - (c0 * ua + c1 * ub0 + c2 * ub1)
+        proj2 = rsum(uw * uw) - (c0 * ua + c1 * ub0 + c2 * ub1)
         h = 2.0 * torch.clamp(proj2, min=0.0)
         return chi2, g, h, kd, s, q
 

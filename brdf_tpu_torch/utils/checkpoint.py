@@ -1,14 +1,16 @@
 """Checkpoint / resume for fitting runs.
 
 The port's own copy of ``brdf_tpu/utils/checkpoint.py`` (which imports JAX
-only for its process index): fitted parameter maps and solver state are
-saved as a compressed ``.npz`` shard plus a JSON manifest, so a long fit can
-resume mid-run (p, μ, ν, stop codes, counters).
+only for its process index and count; here they are the ``torch.distributed``
+rank and world size): fitted parameter maps and solver state are saved as
+compressed ``.npz`` shards, one a process, plus a JSON manifest, so a long
+fit can resume mid-run (p, μ, ν, stop codes, counters).
 
 Format: ``<dir>/step_<n>/shard_<p>.npz`` + ``<dir>/step_<n>/manifest.json``,
 the JAX package's, so a checkpoint written by either package is read by the
-other. The port runs in one process and writes one shard, ``shard_0000``;
-loading concatenates however many shards the manifest records.
+other. A single process writes one shard; over several ranks each writes its
+own and rank 0 writes the manifest once all are in. Loading concatenates the
+shards on axis 0 in process order.
 """
 
 from __future__ import annotations
@@ -16,10 +18,12 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import time
 
 import numpy as np
+import torch.distributed as dist
 
-_PROCESS = 0       # the port is single-process: one writer, one shard
+from brdf_tpu_torch.parallel.mesh import process_count, process_index
 
 
 def _step_dir(path: str, step: int) -> str:
@@ -31,21 +35,54 @@ def save_fit_state(
     step: int,
     arrays: dict[str, np.ndarray],
     metadata: dict | None = None,
+    shard_timeout: float = 120.0,
+    process: tuple[int, int] | None = None,
 ) -> str:
     """Save named arrays + metadata for ``step``. Returns the step directory.
 
-    The shard is published atomically and the manifest is written last: it
+    Multi-process protocol (one writer a rank, on a shared filesystem): every
+    process atomically publishes its own ``shard_<p>.npz`` into the step
+    directory; process 0 then waits up to ``shard_timeout`` seconds for all
+    shards to appear and publishes ``manifest.json`` **last**. The manifest
     is the commit record, so readers (and :func:`latest_step`) never observe
-    a half-written step.
+    a half-written step. ``process`` is ``(index, count)``, this process's
+    rank and the number of writers; by default the ``torch.distributed``
+    rank and world size (0 and 1 without a process group), and then every
+    rank returns only once the step is committed (a barrier), so that all
+    of them see the same newest step when a fit resumes. A rank that writes
+    alone what every rank holds passes ``(0, 1)``.
     """
+    proc, expected = (process_index(), process_count()) if process is None else process
     d = _step_dir(path, step)
     os.makedirs(d, exist_ok=True)
-    tmp = os.path.join(d, f".shard_{_PROCESS:04d}.tmp.npz")
+    tmp = os.path.join(d, f".shard_{proc:04d}.tmp.npz")
     np.savez_compressed(tmp, **{k: np.asarray(v) for k, v in arrays.items()})
-    os.replace(tmp, os.path.join(d, f"shard_{_PROCESS:04d}.npz"))
+    os.replace(tmp, os.path.join(d, f"shard_{proc:04d}.npz"))
+    if proc == 0:
+        _commit(d, step, arrays, metadata, expected, shard_timeout)
+    if process is None and expected > 1:
+        dist.barrier()
+    return d
+
+
+def _commit(d: str, step: int, arrays: dict, metadata: dict | None, expected: int,
+            shard_timeout: float) -> None:
+    """Process 0's part: wait for ``expected`` shards, then write the
+    manifest."""
+    deadline = time.monotonic() + shard_timeout
+    while True:
+        present = [n for n in os.listdir(d) if n.startswith("shard_") and n.endswith(".npz")]
+        if len(present) >= expected:
+            break
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"step {step}: only {len(present)}/{expected} shards appeared within "
+                f"{shard_timeout}s"
+            )
+        time.sleep(0.05)
     manifest = {
         "step": step,
-        "num_shards": 1,
+        "num_shards": expected,
         "keys": sorted(arrays.keys()),
         "metadata": metadata or {},
     }
@@ -53,7 +90,6 @@ def save_fit_state(
     with open(mtmp, "w") as fh:
         json.dump(manifest, fh, indent=2)
     os.replace(mtmp, os.path.join(d, "manifest.json"))
-    return d
 
 
 def latest_step(path: str) -> int | None:
@@ -107,10 +143,13 @@ class FitCheckpointer:
         self.keep = max(keep, 1)
 
     def maybe_save(self, step: int, arrays: dict, metadata: dict | None = None):
+        """Save this process's shard of ``step`` every ``every`` steps; rank 0
+        alone prunes the steps past the newest ``keep``."""
         if step % self.every:
             return None
         out = save_fit_state(self.path, step, arrays, metadata)
-        self._prune()
+        if process_index() == 0:
+            self._prune()
         return out
 
     def restore(self, step: int | None = None):

@@ -4,8 +4,8 @@
 The reference logged progress via scattered ``std::cout`` and an on-screen
 HUD (``brdfdata.cpp:1063-1064``, ``glutcallbacks.cpp:530-605``). Here:
 structured JSONL events (residual norms, convergence histograms, throughput),
-tee'd to stdout. The port runs as one process, which is the JAX package's
-process 0: it always writes.
+tee'd to stdout, from rank 0 only (``torch.distributed``; a single process is
+rank 0), as the JAX package writes from process 0.
 """
 
 from __future__ import annotations
@@ -18,15 +18,17 @@ import time
 import numpy as np
 import torch
 
+from brdf_tpu_torch.parallel.mesh import process_index
+
 
 def _now() -> float:
     return time.time()
 
 
 def log_event(kind: str, quiet: bool = False, **fields) -> dict:
-    """Emit one structured event to stdout. Returns it."""
+    """Emit one structured event to stdout (rank 0 only). Returns it."""
     event = {"t": round(_now(), 3), "kind": kind, **fields}
-    if not quiet:
+    if process_index() == 0 and not quiet:
         print(json.dumps(event, default=_np_default), file=sys.stdout, flush=True)
     return event
 
@@ -70,7 +72,7 @@ class EventLog:
 
     def __init__(self, path: str | None):
         self.path = path
-        if path:
+        if path and process_index() == 0:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
             self._fh = open(path, "a", buffering=1)
         else:

@@ -143,8 +143,25 @@ per source, in parallel), then:
     0.01: ``FRONT_RUNS`` says why); prints
     each command's wall time and its events' ``secs``; runs
     ``python -m brdf_tpu_torch presets`` and ``info``;
-26. prints one JSON line of every ported kernel (K0–K8), then the card line,
-    then ``{"ok": true, "device": {...}}`` as the last line.
+26. drives the main paths over a ``(data, view)`` mesh of ranks
+    (``phase_sharded``): four gloo ranks sharing the one card, started after
+    the kernels are built, lay out the meshes (4, 1), (2, 2) and (1, 4) in one
+    world and run timber-blinn (``"varpro"``), lm-blinn (``"auto"``) and
+    timber-aniso (``"varpro"``) through ``fit_per_texel(mesh=)`` and the joint
+    fit through ``fit_joint_normalmap(mesh=)`` at the main paths' size; over
+    (4, 1) every gathered lane equals the single-process fit of the phases
+    above and K1, K5, K7 and K8 ran on every rank; over (2, 2) and (1, 4) (K6
+    on every rank for the LM fit) the ranks return the same bits, the run
+    equals the same mesh with the plain versions, and against the same tier
+    on one process (the earlier phase's fit for lm-blinn; for VarPro the eager
+    tier it takes over sharded views) the converged share on lit lanes is
+    within 0.01 and χ² p99 within 2× (above 1e-10); the joint fit equals the
+    single-process fit on every mesh;
+    a world of one over NCCL equals the fit with no process group. The wall
+    times are of four ranks sharing one card and say nothing of scaling;
+27. prints one JSON line of every ported kernel (K0–K8, with its launches on
+    the sharded paths), then the card line, then ``{"ok": true, "device":
+    {...}}`` as the last line.
 
 Any failure raises and the script exits non-zero without the ``ok`` line.
 It needs the repository beside it and a CUDA device; it imports nothing of
@@ -154,6 +171,7 @@ JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -169,6 +187,8 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+import torch.multiprocessing as mp  # noqa: E402
 
 from brdf_tpu_torch import cli, native  # noqa: E402
 from brdf_tpu_torch.configs import PRESETS  # noqa: E402
@@ -188,6 +208,7 @@ from brdf_tpu_torch.models.normalmap import joint_eval, joint_spec, tangent_basi
 from brdf_tpu_torch.ops import _build, lm as k5, ne as k6, shading as k0, varpro as k1  # noqa: E402
 from brdf_tpu_torch.ops import varpro_nd as k8  # noqa: E402
 from brdf_tpu_torch.parallel import fit as pfit  # noqa: E402
+from brdf_tpu_torch.parallel.mesh import VIEW_AXIS, initialize_multihost, make_mesh  # noqa: E402
 from brdf_tpu_torch.pipeline import fit as pipeline_fit  # noqa: E402
 from brdf_tpu_torch.pipeline import render as prender  # noqa: E402
 from brdf_tpu_torch.pipeline import scene as pscene  # noqa: E402
@@ -240,6 +261,8 @@ ALL_LOBES = tuple(LM_LOBE_OPS)
 # run on the card measured every output row equal on every lane, so the bar
 # is equality: bit for bit, or NaN on both sides
 LM_OPTS = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=60)
+# each main path's single-process result by fit, for phase_sharded
+SINGLE_FITS: dict = {}
 DEVICE = torch.device("cuda")
 # the shading batch of bench.py::_shading_rows, and the serve scene: an
 # icosphere of 20·4^6 = 81920 faces that covers half of a 1024 × 1024 frame
@@ -494,6 +517,7 @@ def phase_main_path(errs: list[float]) -> tuple[int, dict, dict]:
         rep = _fit(problems[name][0], cfg)
         torch.cuda.synchronize()
         reports[name] = (rep, time.perf_counter() - t0)
+        SINGLE_FITS[name] = rep.result
         counts[name] = k1.LAUNCHES - before
     launches = k1.LAUNCHES                       # ... and ends here
     out = {}
@@ -988,6 +1012,7 @@ def phase_lm_main_path(errs: list[float]) -> tuple[int, dict, dict]:
         rep = _lm_fit(problems[name], cfg)
         torch.cuda.synchronize()
         reports[name] = (rep, time.perf_counter() - t0)
+        SINGLE_FITS[name] = rep.result
         counts[name] = k5.LAUNCHES - before
     launches = k5.LAUNCHES                       # ... and ends here
     out = {}
@@ -2220,6 +2245,8 @@ def phase_joint_main_path(errs: list[float]) -> tuple[int, dict, tuple]:
         res, spec = fit_joint_normalmap(problem, **kw)
         torch.cuda.synchronize()
         results[name] = res
+        if name == "grid_init":
+            SINGLE_FITS["joint-grid_init"] = res
         counts[name] = dict(launches=k6.LAUNCHES["joint_ne"] - before,
                             passes=k6.LOOP_SYNCS - syncs - solves[name],
                             first_wall_s=time.perf_counter() - t0)
@@ -2829,6 +2856,7 @@ def phase_nd_main_path(errs: list[float]) -> tuple[int, dict, dict]:
         rep = _nd_fit(problems[name][0], cfg)
         torch.cuda.synchronize()
         reports[name] = (rep, time.perf_counter() - t0)
+        SINGLE_FITS[name] = rep.result
         counts[name] = k8.LAUNCHES - before
     launches = k8.LAUNCHES                       # ... and ends here
     out = {}
@@ -3326,6 +3354,249 @@ def run_front_end():
         return phase_front_end(work)
 
 
+# ---------------------------------------------------------------------------
+# Texel and view sharding over a (data, view) mesh of ranks
+# ---------------------------------------------------------------------------
+
+SHARDED_WORLD = 4
+SHARDED_MESHES = ((4, 1), (2, 2), (1, 4))
+SHARDED_RUNS = {
+    # the main paths' per-texel fits, their problems rebuilt from the same seeds
+    # (phase_main_path, phase_lm_main_path, phase_nd_main_path), and the kernel
+    # each launches while a rank holds all of a texel's views
+    "timber-blinn": (lambda: _texel_problem("blinn_phong", seed=1)[0],
+                     dict(MAIN_PATH["timber-blinn"], opts=OPTS, engine="varpro"), "K1"),
+    "lm-blinn": (lambda: _lm_texel_problem("blinn_phong", seed=11),
+                 dict(LM_MAIN_PATH["lm-blinn"], opts=LM_OPTS), "K5"),
+    "timber-aniso-varpro": (lambda: nd_texel_problem("ward_aniso", seed=82)[0],
+                            dict(ND_MAIN_PATH["timber-aniso-varpro"], opts=LM_OPTS,
+                                 engine="varpro"), "K8"),
+}
+# K1, K5, K6, K7 and K8 as chip_smoke's kernel line names them
+SHARDED_KERNELS = ("K1", "K5", "K6", "K7", "K8")
+# a fit at the float32 floor: phase_nd_main_path's bar (median χ² < 1e-10)
+CHI2_FLOOR = 1e-10
+FIT_FIELDS = ("p", "chi2", "stop", "iters")
+
+
+def sharded_counts() -> dict:
+    return {"K1": k1.LAUNCHES, "K5": k5.LAUNCHES, "K6": k6.LAUNCHES["ne"],
+            "K7": k6.LAUNCHES["joint_ne"], "K8": k8.LAUNCHES}
+
+
+def reset_sharded_counts() -> None:
+    k1.LAUNCHES = k5.LAUNCHES = k8.LAUNCHES = 0
+    reset_ne_counts()
+
+
+def fit_arrays(res) -> dict:
+    return {f: getattr(res, f).detach().cpu() for f in FIT_FIELDS}
+
+
+def digest(arrays: dict) -> str:
+    """One hash of a result's lanes: parameters, χ², stop codes, iterations."""
+    h = hashlib.sha256()
+    for f in FIT_FIELDS:
+        h.update(arrays[f].numpy().tobytes())
+    return h.hexdigest()
+
+
+def sharded_rank(rank: int, world: int, store: str, work: str) -> None:
+    """One of the gloo ranks of ``phase_sharded``, all on the one card: the
+    main paths' fits on every mesh shape through ``fit_per_texel(mesh=)`` and
+    ``fit_joint_normalmap(mesh=)``, then over a sharded view axis the same
+    fits with every kernel's plain version. Writes what it got to ``work``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(initialize_multihost(f"file://{store}", world, rank, backend="gloo", device=DEVICE),
+          "no process group")
+    out: dict = {"meshes": {}}
+    problems = {name: build() for name, (build, _, _) in SHARDED_RUNS.items()}
+    joint = joint_problem_on_card(np.random.default_rng(64), T_JOINT, "cook_torrance")[0]
+    for shape in SHARDED_MESHES:
+        mesh = make_mesh(*shape, device=DEVICE)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        reset_sharded_counts()                 # this mesh's run of the main paths starts here
+        fits = {name: fit_arrays(fit_per_texel(problems[name], mesh=mesh, **kw).result)
+                for name, (_, kw, _) in SHARDED_RUNS.items()}
+        fits["joint"] = fit_arrays(fit_joint_normalmap(joint, mesh=mesh)[0])
+        torch.cuda.synchronize()
+        counts = sharded_counts()              # ... and ends here
+        dist.barrier()
+        row = dict(wall_s=time.perf_counter() - t0, launches=counts,
+                   digests={name: digest(a) for name, a in fits.items()})
+        if shape[1] > 1:
+            # the same fits with every kernel's plain version stood in (plain
+            # K6 on the card, the same rank-order sums)
+            with all_plain():
+                plain = {name: fit_arrays(fit_per_texel(problems[name], mesh=mesh, **kw).result)
+                         for name, (_, kw, _) in SHARDED_RUNS.items()}
+            check(sharded_counts() == counts, "a plain stand-in counted a launch")
+            row["plain_digests"] = {name: digest(a) for name, a in plain.items()}
+        if rank == 0:
+            row["fits"] = fits
+        out["meshes"][f"{shape[0]}x{shape[1]}"] = row
+    dist.destroy_process_group()
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+
+
+def nccl_rank(rank: int, store: str, work: str) -> None:
+    """A world of one over NCCL: an all_gather, and ``lm-blinn`` through
+    ``fit_per_texel(mesh=)`` on its 1 × 1 mesh."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(initialize_multihost(f"file://{store}", 1, rank, device=DEVICE), "no process group")
+    check(dist.get_backend() == "nccl", f"a CUDA rank got {dist.get_backend()}")
+    x = torch.arange(4.0, device=DEVICE)
+    parts = [torch.empty_like(x)]
+    dist.all_gather(parts, x)
+    check(torch.equal(parts[0], x), "NCCL all_gather in a world of one")
+    build, kw, _ = SHARDED_RUNS["lm-blinn"]
+    res = fit_per_texel(build(), mesh=make_mesh(device=DEVICE), **kw).result
+    torch.save(fit_arrays(res), os.path.join(work, "nccl.pt"))
+    dist.destroy_process_group()
+
+
+def spawn_ranks(fn, nprocs: int, *args) -> None:
+    """``fn(rank, *args)`` in ``nprocs`` new processes; raises, the others
+    stopped, if one fails. The ranks of one host talk over the loopback
+    interface, which every host has."""
+    with mock.patch.dict(os.environ, {"GLOO_SOCKET_IFNAME": "lo", "NCCL_SOCKET_IFNAME": "lo"}):
+        mp.start_processes(fn, args=args, nprocs=nprocs, start_method="spawn", join=True)
+
+
+def eager_varpro_fit(problem, kw: dict):
+    """What a VarPro fit over sharded views runs, on one process: the eager
+    tier of ``solver/varpro.py`` from the grid init over every view
+    (``_make_fit_block``'s XLA tier), reached by naming the view axis of the
+    1 × 1 mesh, where its sums are the identity."""
+    named = pfit._fit_pipeline
+
+    def pipeline(*args):
+        return named(*args[:-1], VIEW_AXIS)
+
+    with mock.patch.object(pfit, "_fit_pipeline", pipeline):
+        return fit_per_texel(problem, mesh=make_mesh(device=DEVICE), **kw).result
+
+
+def converged_lit(stop: torch.Tensor, problem, m: int) -> float:
+    return lit_converged(stop.reshape(problem.intensity.shape[0], -1), problem, m)
+
+
+def chi2_p99(chi2: torch.Tensor) -> float:
+    return float(torch.quantile(chi2.double().flatten(), 0.99))
+
+
+def phase_sharded(single: dict) -> tuple[dict, dict]:
+    """The main paths over a ``(data, view)`` mesh: four gloo ranks on the one
+    card, meshes (4, 1), (2, 2) and (1, 4) in one world (``sharded_rank``).
+    Over (4, 1) every gathered lane equals the single-process fit of the
+    earlier phases and each fused kernel ran on every rank; over (2, 2) and
+    (1, 4) the replicas of a view group return the same bits, the run equals
+    the same mesh with the plain versions, and against the single-process fit
+    of the same tier the converged share on lit lanes is within 0.01 and χ²
+    p99 within 2×: for lm-blinn the earlier phase's (K5 there, K6 here, one
+    LM variant), for the VarPro fits ``eager_varpro_fit`` (a fused kernel
+    cannot see a texel's other views, so over sharded views VarPro takes the
+    eager tier, as the JAX package routes it; its numbers beside the earlier
+    phase's fused fit are reported too). The joint fit shards texels over
+    every rank on every mesh and equals the single-process fit. Then a world
+    of one over NCCL equals the fit with no process group."""
+    out: dict = {"ranks": SHARDED_WORLD, "transport": "gloo, 4 ranks sharing one H100",
+                 "meshes": {}}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    launches = dict.fromkeys(SHARDED_KERNELS, 0)
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        spawn_ranks(sharded_rank, SHARDED_WORLD, SHARDED_WORLD, os.path.join(work, "store"), work)
+        out["wall_s"] = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt")) for r in range(SHARDED_WORLD)]
+        t0 = time.perf_counter()
+        spawn_ranks(nccl_rank, 1, os.path.join(work, "nccl-store"), work)
+        out["nccl_world_of_one_wall_s"] = time.perf_counter() - t0
+        nccl = torch.load(os.path.join(work, "nccl.pt"))
+    problems = {name: build() for name, (build, _, _) in SHARDED_RUNS.items()}
+    refs = {name: fit_arrays(single[name]) for name in SHARDED_RUNS}
+    refs["joint"] = fit_arrays(single["joint-grid_init"])
+    same_tier = {name: refs[name] for name in SHARDED_RUNS}
+    for name, (_, kw, _) in SHARDED_RUNS.items():
+        if kw.get("engine") == "varpro":
+            t0 = time.perf_counter()
+            same_tier[name] = fit_arrays(eager_varpro_fit(problems[name], kw))
+            out[f"{name}_eager_single_wall_s"] = time.perf_counter() - t0
+    for shape in SHARDED_MESHES:
+        key = f"{shape[0]}x{shape[1]}"
+        rows = [r["meshes"][key] for r in ranks]
+        row: dict = dict(wall_s=max(r["wall_s"] for r in rows),
+                         launches_by_rank=[r["launches"] for r in rows])
+        for kernel in SHARDED_KERNELS:
+            launches[kernel] += sum(r["launches"][kernel] for r in rows)
+        fits = rows[0]["fits"]
+        for name, got in fits.items():
+            ranks_equal = all(r["digests"][name] == rows[0]["digests"][name] for r in rows)
+            equal = all(torch.equal(got[f], refs[name][f]) for f in FIT_FIELDS)
+            entry = dict(ranks_equal=ranks_equal, equal_to_single=equal)
+            check(ranks_equal, f"{key} {name}: the ranks returned different results")
+            if name == "joint" or shape[1] == 1:
+                check(equal, f"{key} {name}: the sharded fit differs from the single-process fit")
+            else:
+                entry["equal_to_plain"] = all(r["digests"][name] == r["plain_digests"][name]
+                                              for r in rows)
+                check(entry["equal_to_plain"], f"{key} {name}: kernel run against plain run")
+                problem = problems[name]
+                m = MODELS[SHARDED_RUNS[name][1]["model"]].n_params
+                ref = same_tier[name]
+                entry.update(
+                    lit_converged=converged_lit(got["stop"], problem, m),
+                    lit_converged_same_tier=converged_lit(ref["stop"], problem, m),
+                    lit_converged_single=converged_lit(refs[name]["stop"], problem, m),
+                    chi2_p99=chi2_p99(got["chi2"]), chi2_p99_same_tier=chi2_p99(ref["chi2"]),
+                    chi2_p99_single=chi2_p99(refs[name]["chi2"]),
+                    param_share_1e2_same_tier=share_of(
+                        ((got["p"] - ref["p"]).abs() <= 1e-2 * ref["p"].abs().clamp(min=1e-3))
+                        .all(-1)))
+                check(abs(entry["lit_converged"] - entry["lit_converged_same_tier"]) <= 0.01,
+                      f"{key} {name}: converged share on lit lanes {entry}")
+                # below CHI2_FLOOR both sit at float32 rounding, where the ratio of
+                # two p99s says only how the sums were ordered
+                lo, hi = sorted((entry["chi2_p99"], entry["chi2_p99_same_tier"]))
+                check(hi < CHI2_FLOOR or (lo > 0 and hi <= 2 * lo),
+                      f"{key} {name}: chi2 p99 {entry}")
+            row[name] = entry
+        if shape[1] == 1:
+            for name, (_, _, kernel) in SHARDED_RUNS.items():
+                check(all(r["launches"][kernel] > 0 for r in rows),
+                      f"{key}: a rank never launched {kernel}: {row['launches_by_rank']}")
+        else:
+            check(all(r["launches"]["K6"] > 0 for r in rows),
+                  f"{key}: a rank never launched K6: {row['launches_by_rank']}")
+        check(all(r["launches"]["K7"] > 0 for r in rows),
+              f"{key}: a rank never launched K7: {row['launches_by_rank']}")
+        out["meshes"][key] = row
+        log(f"sharded {key}, 4 ranks sharing one H100 over gloo: {row['wall_s']:.1f} s; "
+            + json.dumps({k: v for k, v in row.items() if k not in ("wall_s",)}))
+    nccl_equal = all(torch.equal(nccl[f], refs["lm-blinn"][f]) for f in FIT_FIELDS)
+    out["nccl_world_of_one_equal"] = nccl_equal
+    check(nccl_equal, "lm-blinn over a world of one on NCCL differs from the fit with no group")
+    out["launches"] = launches
+    return launches, out
+
+
+def run_sharded() -> tuple[dict, dict]:
+    """``phase_sharded`` with the single-process fits it is held against made
+    here (the earlier phases' calls, the same seeds). With the kernels built,
+    the phase alone on the card is
+
+        python3 -c 'import chip_smoke as cs; cs._build.build_all(); print(cs.run_sharded()[0])'
+    """
+    single = {name: fit_per_texel(build(), device="cuda", **kw).result
+              for name, (build, kw, _) in SHARDED_RUNS.items()}
+    joint = joint_problem_on_card(np.random.default_rng(64), T_JOINT, "cook_torrance")[0]
+    single["joint-grid_init"] = fit_joint_normalmap(joint)[0]
+    return phase_sharded(single)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
@@ -3434,6 +3705,11 @@ def main() -> int:
     front_launches, front_end = run_front_end()
     lap("front end")
 
+    # the main paths over a (data, view) mesh of four ranks
+    sharded_launches, sharded = phase_sharded(SINGLE_FITS)
+    SINGLE_FITS.clear()
+    lap("sharded main paths")
+
     numbers = {
         "numbers": {
             "card": card, "kernel": "K1 varpro (csrc/varpro.cu)",
@@ -3479,6 +3755,11 @@ def main() -> int:
             "commands on a synthetic scan (tools/synthetic_scene.py)",
             **front_end, "seconds": time.perf_counter() - t_start,
         },
+        "numbers_sharded": {
+            "card": card, "path": "fit_per_texel(mesh=) and fit_joint_normalmap(mesh=) over "
+            "(data, view) meshes of 4 gloo ranks sharing one H100 (wall times are not scaling)",
+            **sharded, "seconds": time.perf_counter() - t_start,
+        },
     }
     for key, value in numbers.items():
         print(json.dumps({key: value}))
@@ -3498,6 +3779,7 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": "brdf_tpu_torch/csrc/shade.cu",
                 "replaces": replaces, "launches": shade_launches[kernel],
                 "launches_front_end": front_launches["K2"] if kernel == "fwd" else 0,
+                "launches_sharded": 0,
                 "max_abs_err": max(errs_shade[kernel]), "ms": timed[kernel]["ms"],
                 "plain_ms": timed[kernel]["plain_ms"], "bound_ms": timed[kernel]["bound_ms"],
                 "bound_by": timed[kernel]["bound_by"], "library_ms": None,
@@ -3512,7 +3794,9 @@ def main() -> int:
         "replaces": "brdf_tpu/ops/shading_pallas.py:495",
         "launches": (launches + lm_launches + sum(shade_launches.values())
                      + k6_launches + k7_launches + nd_launches
-                     + sum(front_launches[k] for k in ("K1", "K2", "K5", "K6", "K7", "K8"))),
+                     + sum(front_launches[k] for k in ("K1", "K2", "K5", "K6", "K7", "K8"))
+                     + sum(sharded_launches.values())),
+        "launches_sharded": sum(sharded_launches.values()),
         "max_abs_err": max(errs_k0),
         "ms": k0_t["ms"],
         "plain_ms": k0_t["plain_ms"],
@@ -3527,6 +3811,7 @@ def main() -> int:
         "replaces": "brdf_tpu/ops/varpro_pallas.py:47",
         "launches": launches,
         "launches_front_end": front_launches["K1"],
+        "launches_sharded": sharded_launches["K1"],
         "max_abs_err": max(errs_parity + errs_main),
         "ms": main_t["ms"],
         "plain_ms": main_t["plain_ms"],
@@ -3553,6 +3838,7 @@ def main() -> int:
         "replaces": "brdf_tpu/ops/lm_pallas.py:137",
         "launches": lm_launches,
         "launches_front_end": front_launches["K5"],
+        "launches_sharded": sharded_launches["K5"],
         "max_abs_err": max(errs_k5 + errs_lm_main),
         "ms": k5_t["ms"],
         "plain_ms": k5_t["plain_ms"],
@@ -3571,6 +3857,7 @@ def main() -> int:
         "replaces": "brdf_tpu/ops/lm_pallas.py:380",
         "launches": k6_launches,
         "launches_front_end": front_launches["K6"],
+        "launches_sharded": sharded_launches["K6"],
         "max_abs_err": max(errs_k6),
         "ms": k6_t["ms"],
         "plain_ms": k6_t["plain_ms"],
@@ -3587,6 +3874,7 @@ def main() -> int:
         "replaces": "brdf_tpu/ops/lm_pallas.py:939",
         "launches": k7_launches,
         "launches_front_end": front_launches["K7"],
+        "launches_sharded": sharded_launches["K7"],
         "max_abs_err": max(errs_k7),
         "ms": k7_t["ms"],
         "plain_ms": k7_t["plain_ms"],
@@ -3603,6 +3891,7 @@ def main() -> int:
         "replaces": "brdf_tpu/ops/varpro_pallas.py:325",
         "launches": nd_launches,
         "launches_front_end": front_launches["K8"],
+        "launches_sharded": sharded_launches["K8"],
         "max_abs_err": max(errs_k8 + errs_nd_main),
         "ms": k8_t["ms"],
         "plain_ms": k8_t["plain_ms"],

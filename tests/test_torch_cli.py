@@ -269,8 +269,10 @@ def test_configs_presets_and_info():
     assert info.returncode == 0, info.stderr
     got = json.loads(info.stdout)
     assert got["torch"] == torch.__version__ and got["device_count"] == torch.cuda.device_count()
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        cli.main(["--multihost", "presets"])
+    assert (got["process_count"], got["process_index"]) == (1, 0)
+    # --multihost on one process outside a cluster starts nothing and runs the command
+    assert cli.main(["--multihost", "presets"]) == 0
+    assert not torch.distributed.is_initialized()
 
 
 def test_fit_without_device_cpu_raises_here(tmp_path):
@@ -287,9 +289,10 @@ def test_fit_without_device_cpu_raises_here(tmp_path):
 
 
 def test_api_names_and_clean_imports():
-    """The port exports every name the JAX package's ``__init__`` and
-    ``solver/__init__`` export, and a fresh interpreter imports the front
-    end's modules with no ``jax``, no JAX package, no PIL and no ``triton``."""
+    """The port exports every name the JAX package's ``__init__``,
+    ``solver/__init__`` and ``parallel/__init__`` export, and a fresh
+    interpreter imports the front end's modules and the mesh with no ``jax``,
+    no JAX package, no PIL and no ``triton``."""
     import ast
 
     import brdf_tpu_torch
@@ -301,9 +304,14 @@ def test_api_names_and_clean_imports():
         names = [a.name for node in tree.body if isinstance(node, ast.ImportFrom)
                  for a in node.names]
         assert names and [n for n in names if not hasattr(mod, n)] == [], init
+    import brdf_tpu_torch.parallel
+
+    tree = ast.parse((ROOT / "brdf_tpu/parallel/__init__.py").read_text())
+    names = [a.name for node in tree.body if isinstance(node, ast.ImportFrom) for a in node.names]
+    assert names and [n for n in names if not hasattr(brdf_tpu_torch.parallel, n)] == []
     code = """
 import sys
-for mod in ("cli", "configs", "pipeline.envlight",
+for mod in ("cli", "configs", "pipeline.envlight", "parallel.mesh",
             "geometry.visibility", "utils.logging", "utils.profiling", "solver.axb",
             "solver.constrained", "solver.problems", "solver.stats"):
     __import__("brdf_tpu_torch." + mod)

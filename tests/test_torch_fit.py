@@ -28,6 +28,7 @@ from brdf_tpu.solver.robust import robust_weights, saturation_weights  # noqa: E
 from brdf_tpu_torch import convert  # noqa: E402
 from brdf_tpu_torch.models.brdf import ShadingAngles as ShadingAnglesT  # noqa: E402
 from brdf_tpu_torch.parallel import fit as tfit  # noqa: E402
+from brdf_tpu_torch.parallel import fit_texels_sharded, make_mesh  # noqa: E402
 from brdf_tpu_torch.pipeline.fit import FitReport, TexelProblem, fit_per_texel  # noqa: E402
 from brdf_tpu_torch.solver.lm import LMOptions  # noqa: E402
 from torch_port_inputs import agreement, angle_columns, recovery, true_params  # noqa: E402
@@ -191,11 +192,26 @@ def test_entry_points_raise_without_a_gpu():
 def test_later_slices_raise_not_implemented():
     """Every engine now takes what it took in the JAX package: the LM
     engines any lobe (test_torch_fit_lm.py), ``engine="varpro"`` every
-    separable lobe, the m ≥ 4 ones too (test_torch_fit_varpro_nd.py). What
-    neither package fits still raises."""
+    separable lobe, the m ≥ 4 ones too (test_torch_fit_varpro_nd.py), and
+    the fits take a mesh (tests/test_torch_sharding.py): over the 1 × 1 mesh
+    of one process they are the device's fits, bit for bit. What neither
+    package fits still raises."""
     problem, _, _ = _problem("blinn_phong", seed=2)
     tp = convert.from_numpy(problem)
     ang, y = tp.angles, tp.intensity[..., 0]
+    mesh = make_mesh(device="cpu")
+    assert (mesh.data, mesh.view, mesh.world, mesh.coords) == (1, 1, 1, (0, 0))
+    for engine in ("xla", "pallas", "varpro"):
+        one = tfit.fit_texels("blinn_phong", ang, y, opts=LMOptions(itmax=3), engine=engine,
+                              robust="huber", robust_iters=1, device="cpu")
+        meshed = fit_texels_sharded("blinn_phong", ang, y, mesh, opts=LMOptions(itmax=3),
+                                    engine=engine, robust="huber", robust_iters=1)
+        assert all(torch.equal(a, b) for a, b in zip(one, meshed)), engine
+    rep = fit_per_texel(tp, "blinn_phong", opts=LMOptions(itmax=3), mesh=mesh)
+    ref = fit_per_texel(tp, "blinn_phong", opts=LMOptions(itmax=3), device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(rep.result, ref.result))
+    with pytest.raises(ValueError, match="not both"):
+        fit_per_texel(tp, "blinn_phong", device="cpu", mesh=mesh)
     for engine in ("auto", "pallas", "xla"):
         res = tfit.fit_texels("blinn_phong", ang, y, opts=LMOptions(itmax=2), engine=engine,
                               device="cpu")

@@ -6,6 +6,8 @@ counters are compared lane for lane: χ² and parameters to 1e-8, stop codes,
 iterations and the evaluation counters equal (on the share of lanes stated
 in each test, where a decision can sit on an ulp of χ²)."""
 
+from contextlib import nullcontext
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -17,6 +19,7 @@ from brdf_tpu.models.brdf import MODELS as J_MODELS, ShadingAngles as JAngles  #
 from brdf_tpu.solver import lm as jlm  # noqa: E402
 from brdf_tpu_torch import convert  # noqa: E402
 from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles  # noqa: E402
+from brdf_tpu_torch.parallel.mesh import make_mesh, use_mesh  # noqa: E402
 from brdf_tpu_torch.solver import lm as tlm  # noqa: E402
 from torch_port_inputs import angle_columns, true_params  # noqa: E402
 
@@ -240,9 +243,11 @@ def test_runs_in_the_dtype_of_p0():
     ({}, dict(axis_name="view")),
 ])
 def test_unported_modes_name_their_roadmap_item(kwargs, opts):
-    """The modes that once raised run now (ROADMAP.md Queue A item 9 is
-    done) and give the JAX package's result on a small problem; a residual
-    axis sharded over devices still raises, naming Queue A item 5."""
+    """The modes that once raised run now (ROADMAP.md Queue A items 9 and 5
+    are done) and give the JAX package's result on a small problem. An
+    ``axis_name`` needs a current mesh, as an axis name needs a bound axis
+    in JAX; over the 1 × 1 mesh its sums are the identity
+    (tests/test_torch_sharding.py runs real ones)."""
     def res_t(p, d):
         return torch.stack([p[0] - d[0], 10.0 * (p[1] - p[0] ** 2), p[2] * p[1] - d[1]])
 
@@ -250,13 +255,16 @@ def test_unported_modes_name_their_roadmap_item(kwargs, opts):
         return jnp.stack([p[0] - d[0], 10.0 * (p[1] - p[0] ** 2), p[2] * p[1] - d[1]])
 
     p0, data = np.array([[0.5, 0.1, 1.0], [2.0, 1.0, -1.0]]), np.array([[1.5, 2.0], [0.5, -1.0]])
+    mesh = nullcontext()
     if "axis_name" in opts:
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
+        with pytest.raises(ValueError, match="use_mesh"):
             tlm.levmar_bc(res_t, torch.tensor(p0), data=torch.tensor(data),
                           opts=tlm.LMOptions(**opts), **kwargs)
-        return
-    rt = tlm.levmar_bc(res_t, torch.tensor(p0), data=torch.tensor(data),
-                       opts=tlm.LMOptions(**dict(OPTS, **opts)), **kwargs)
+        mesh = use_mesh(make_mesh(device="cpu"))
+    with mesh:
+        rt = tlm.levmar_bc(res_t, torch.tensor(p0), data=torch.tensor(data),
+                           opts=tlm.LMOptions(**dict(OPTS, **opts)), **kwargs)
+    opts = {k: v for k, v in opts.items() if k != "axis_name"}
     rj = jlm.levmar_bc(res_j, jnp.asarray(p0), data=jnp.asarray(data),
                        opts=jlm.LMOptions(**dict(OPTS, **opts)), **kwargs)
     np.testing.assert_allclose(rt.p.numpy(), np.asarray(rj.p), rtol=1e-8, atol=1e-10)

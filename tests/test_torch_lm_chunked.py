@@ -25,6 +25,7 @@ from brdf_tpu_torch import convert  # noqa: E402
 from brdf_tpu_torch.models.brdf import MODELS  # noqa: E402
 from brdf_tpu_torch.ops import lm as k5, ne  # noqa: E402
 from brdf_tpu_torch.parallel import fit as pfit  # noqa: E402
+from brdf_tpu_torch.parallel.mesh import make_mesh, use_mesh  # noqa: E402
 from brdf_tpu_torch.solver.lm import LMOptions, levmar_bc  # noqa: E402
 from torch_port_inputs import angle_columns, recovery, true_params  # noqa: E402
 
@@ -249,8 +250,16 @@ def test_fit_texels_routes_the_pallas_engine_by_view_count(monkeypatch):
 def test_axis_name_and_bounds_are_checked():
     model = "blinn_phong"
     _, ta, target, p0, _ = _problem(model, 8, 4, seed=11)
-    with pytest.raises(NotImplementedError, match="axis_name"):
+    # an axis name needs a current mesh; over the 1 × 1 mesh its sums are the
+    # identity (tests/test_torch_sharding.py runs real ones)
+    with pytest.raises(ValueError, match="use_mesh"):
         ne.lm_fit_chunked(model, ta, torch.tensor(target), torch.tensor(p0), axis_name="view")
+    plain = ne.lm_fit_chunked(model, ta, torch.tensor(target), torch.tensor(p0))
+    with use_mesh(make_mesh(device="cpu")):
+        named = ne.lm_fit_chunked(model, ta, torch.tensor(target), torch.tensor(p0),
+                                  axis_name="view")
+    for a, b in zip(plain, named):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="params"):
         ne.lm_fit_chunked(model, ta, torch.tensor(target), torch.tensor(p0), lower=(0.0,),
                           upper=(1.0,))

@@ -133,3 +133,44 @@ def ulp_bump(rng, x):
     x = np.asarray(x, np.float32)
     bump = rng.choice([-1.0, 0.0, 1.0], x.shape).astype(np.float32)
     return np.where(bump == 0, x, np.nextafter(x, np.copysign(np.float32(np.inf), bump)))
+
+
+def run_ranks(job: str, inputs: dict, work, world: int = 4, timeout: float = 300.0) -> list[dict]:
+    """Run ``tests/torch_mesh_worker.py``'s ``job`` on ``world`` gloo ranks,
+    one process each, on ``inputs`` (numpy arrays by name): each rank's
+    outputs, in rank order. The ranks start from a clean environment (no
+    ``PYTHONPATH``, one thread) and are killed if one fails or the timeout
+    passes."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    work = Path(work)
+    np.savez(work / "inputs.npz", **inputs)
+    worker = Path(__file__).with_name("torch_mesh_worker.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    outs = [work / f"out_{r}.npz" for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(worker), str(r), str(world), str(work / "store"),
+                               str(work / "inputs.npz"), str(outs[r]), job],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    failed = [(r, proc.returncode, logs[r][-3000:] if r < len(logs) else "")
+              for r, proc in enumerate(procs) if proc.returncode != 0]
+    if failed:
+        raise RuntimeError(f"ranks failed: {failed}")
+    result = []
+    for path in outs:
+        with np.load(path) as npz:
+            result.append(dict(npz))
+    return result
