@@ -72,6 +72,7 @@ def cmd_fit(args) -> int:
     from brdf_tpu_torch.configs import PRESETS, FitConfig, ModelConfig, SceneConfig, SolverConfig
     from brdf_tpu_torch.parallel.mesh import process_index
     from brdf_tpu_torch.utils.logging import EventLog
+    from brdf_tpu_torch.utils.profiling import profiler_trace
 
     dev = _device(args)
     if args.preset:
@@ -95,8 +96,10 @@ def cmd_fit(args) -> int:
     if process_index() == 0:
         os.makedirs(out, exist_ok=True)
     log = EventLog(os.path.join(out, "events.jsonl"))
+    profile = getattr(args, "profile", None) if process_index() == 0 else None
     try:
-        _fit(args, cfg, dev, out, log)
+        with profiler_trace(profile):
+            _fit(args, cfg, dev, out, log)
     finally:
         log.close()
     return 0
@@ -761,6 +764,10 @@ def main(argv=None) -> int:
                         "(per-texel fits; a killed run resumes automatically)")
     f.add_argument("--no-resume", action="store_true", dest="no_resume",
                    help="ignore existing solver checkpoints and refit")
+    f.add_argument("--profile", metavar="DIR",
+                   help="write where the fit's time goes into DIR: a Chrome trace of the "
+                        "host and the device with the program's spans (trace.json) and "
+                        "each span's count, total and self time (spans.json)")
     device_arg(f)
     f.set_defaults(fn=cmd_fit)
 

@@ -66,6 +66,8 @@ from brdf_tpu_torch.ops.lm import (
 from brdf_tpu_torch.ops.shading import SHADING_KERNELS
 from brdf_tpu_torch.parallel.mesh import axis_sum
 from brdf_tpu_torch.solver.lm import LMOptions, StopReason
+from brdf_tpu_torch.utils import profiling
+from brdf_tpu_torch.utils.profiling import span
 
 _EPS = 1e-12
 MODES = {"chi2": 0, "grad": 1, "full": 2}
@@ -440,8 +442,27 @@ def chunked_lm_loop(cfg: LMConfig, rows_fn, p_init: torch.Tensor, warm=None) -> 
     later assignments winning. A lane that has stopped keeps its state. The
     damping is additive (``opts.damping`` is not read, as in the reference).
     The loop ends when no lane is active, which costs one host
-    synchronisation per pass."""
+    synchronisation per pass.
+
+    With recording on (``utils/profiling.py``) the call is an ``lm.solve``
+    span and each pass an ``lm.pass`` span, from its first launch to the
+    activity test that ends it (the host synchronisation that waits for the
+    pass); at the end the counters ``lm.lanes`` and ``lm.active_lanes`` add
+    T for every pass and the lanes active in each, which is the sum of the
+    lanes' iterations (one read of the device; counting at each activity
+    test would add a bool-to-int cast kernel a pass)."""
+    with span("lm.solve"):
+        return _lm_loop(cfg, rows_fn, p_init, warm)
+
+
+def _any_active(act: torch.Tensor) -> bool:
+    """Whether any lane is active: the loop's one host synchronisation a pass."""
     global LOOP_SYNCS
+    LOOP_SYNCS += 1
+    return bool(act.any())
+
+
+def _lm_loop(cfg: LMConfig, rows_fn, p_init: torch.Tensor, warm) -> PallasFitResult:
     m = p_init.shape[0]
     lb, ub = cfg.lower, cfg.upper
     p_rows = _clip_rows(p_init, cfg)
@@ -469,71 +490,80 @@ def chunked_lm_loop(cfg: LMConfig, rows_fn, p_init: torch.Tensor, warm=None) -> 
             acc = acc + x
         return acc
 
-    while True:
-        act = (stop == 0.0) & (it < float(cfg.itmax))
-        LOOP_SYNCS += 1
-        if not bool(act.any()):
-            break
-        a, g = _split_full(rows_fn("full", torch.stack(p)), m)
+    act = (stop == 0.0) & (it < float(cfg.itmax))
+    more = _any_active(act)
+    passes = 0
+    while more:
+        passes += 1
+        with span("lm.pass"):
+            a, g = _split_full(rows_fn("full", torch.stack(p)), m)
 
-        pg = [torch.abs(p[j] - torch.clamp(p[j] - g[j], lb[j], ub[j])) for j in range(m)]
-        gi = functools.reduce(torch.maximum, pg)
-        grad_conv = gi <= cfg.eps1
+            pg = [torch.abs(p[j] - torch.clamp(p[j] - g[j], lb[j], ub[j])) for j in range(m)]
+            gi = functools.reduce(torch.maximum, pg)
+            grad_conv = gi <= cfg.eps1
 
-        # Kanzow μ only when no (warm) μ was carried in
-        max_diag = functools.reduce(torch.maximum, [a[(j, j)] for j in range(m)])
-        mu_it = torch.where((it == 0.0) & (mu <= 0.0), cfg.tau * max_diag, mu)
+            # Kanzow μ only when no (warm) μ was carried in
+            max_diag = functools.reduce(torch.maximum, [a[(j, j)] for j in range(m)])
+            mu_it = torch.where((it == 0.0) & (mu <= 0.0), cfg.tau * max_diag, mu)
 
-        frozen = [((p[j] <= lb[j]) & (g[j] > 0)) | ((p[j] >= ub[j]) & (g[j] < 0)) for j in range(m)]
-        free = [torch.where(frozen[j], zero, one) for j in range(m)]
-        af = {}
-        for j in range(m):
-            af[(j, j)] = torch.where(frozen[j], one, a[(j, j)] + mu_it)
-        for j in range(m):
-            for k in range(j + 1, m):
-                af[(j, k)] = a[(j, k)] * free[j] * free[k]
-        gf = [g[j] * free[j] for j in range(m)]
+            frozen = [((p[j] <= lb[j]) & (g[j] > 0)) | ((p[j] >= ub[j]) & (g[j] < 0))
+                      for j in range(m)]
+            free = [torch.where(frozen[j], zero, one) for j in range(m)]
+            af = {}
+            for j in range(m):
+                af[(j, j)] = torch.where(frozen[j], one, a[(j, j)] + mu_it)
+            for j in range(m):
+                for k in range(j + 1, m):
+                    af[(j, k)] = a[(j, k)] * free[j] * free[k]
+            gf = [g[j] * free[j] for j in range(m)]
 
-        dp, solver_ok = _solve_damped(af, gf, m)
+            dp, solver_ok = _solve_damped(af, gf, m)
 
-        pn = [torch.clamp(p[j] + dp[j], lb[j], ub[j]) for j in range(m)]
-        dpa = [pn[j] - p[j] for j in range(m)]           # the projected step
-        small_dp = psum(x * x for x in dpa) <= cfg.eps2_sq * psum(x * x for x in p)
+            pn = [torch.clamp(p[j] + dp[j], lb[j], ub[j]) for j in range(m)]
+            dpa = [pn[j] - p[j] for j in range(m)]           # the projected step
+            small_dp = psum(x * x for x in dpa) <= cfg.eps2_sq * psum(x * x for x in p)
 
-        chi2_new = rows_fn("chi2", torch.stack(pn))[0]
-        finite = torch.isfinite(chi2_new)
-        df = chi2 - chi2_new
+            chi2_new = rows_fn("chi2", torch.stack(pn))[0]
+            finite = torch.isfinite(chi2_new)
+            df = chi2 - chi2_new
 
-        # predicted reduction −(2 gᵀδ + δᵀ JᵀJ δ) with the unfrozen system
-        q = [psum(a[(min(j, k), max(j, k))] * dpa[k] for k in range(m)) for j in range(m)]
-        g_dot = psum(g[j] * dpa[j] for j in range(m))
-        q_dot = psum(dpa[j] * q[j] for j in range(m))
-        dl = -(2.0 * g_dot + q_dot)
+            # predicted reduction −(2 gᵀδ + δᵀ JᵀJ δ) with the unfrozen system
+            q = [psum(a[(min(j, k), max(j, k))] * dpa[k] for k in range(m)) for j in range(m)]
+            g_dot = psum(g[j] * dpa[j] for j in range(m))
+            q_dot = psum(dpa[j] * q[j] for j in range(m))
+            dl = -(2.0 * g_dot + q_dot)
 
-        accept = solver_ok & finite & (df > 0)
-        rho = torch.where(dl > 0, df / torch.maximum(dl, tiny), one)
-        tmp = 2.0 * rho - 1.0
-        mu_next = torch.where(accept, mu_it * torch.maximum(third, 1.0 - tmp * tmp * tmp), mu_it * nu)
-        nu_next = torch.where(accept, zero + 2.0, nu * 2.0)
+            accept = solver_ok & finite & (df > 0)
+            rho = torch.where(dl > 0, df / torch.maximum(dl, tiny), one)
+            tmp = 2.0 * rho - 1.0
+            mu_next = torch.where(accept, mu_it * torch.maximum(third, 1.0 - tmp * tmp * tmp),
+                                  mu_it * nu)
+            nu_next = torch.where(accept, zero + 2.0, nu * 2.0)
 
-        st = zero
-        st = torch.where(mu_next > cfg.mu_max, zero + float(StopReason.NO_REDUCTION), st)
-        st = torch.where((~solver_ok) & (mu_it > cfg.half_mu_max),
-                         zero + float(StopReason.SINGULAR), st)
-        st = torch.where(small_dp & solver_ok, zero + float(StopReason.SMALL_DP), st)
-        chi2_sel = torch.where(accept, chi2_new, chi2)
-        st = torch.where(chi2_sel <= cfg.eps3, zero + float(StopReason.SMALL_CHI2), st)
-        st = torch.where(grad_conv, zero + float(StopReason.SMALL_GRADIENT), st)
+            st = zero
+            st = torch.where(mu_next > cfg.mu_max, zero + float(StopReason.NO_REDUCTION), st)
+            st = torch.where((~solver_ok) & (mu_it > cfg.half_mu_max),
+                             zero + float(StopReason.SINGULAR), st)
+            st = torch.where(small_dp & solver_ok, zero + float(StopReason.SMALL_DP), st)
+            chi2_sel = torch.where(accept, chi2_new, chi2)
+            st = torch.where(chi2_sel <= cfg.eps3, zero + float(StopReason.SMALL_CHI2), st)
+            st = torch.where(grad_conv, zero + float(StopReason.SMALL_GRADIENT), st)
 
-        take = act & accept
-        p = [torch.where(take, pn[j], p[j]) for j in range(m)]
-        chi2 = torch.where(act, chi2_sel, chi2)
-        mu = torch.where(act, mu_next, mu)
-        nu = torch.where(act, nu_next, nu)
-        it = torch.where(act, it + 1.0, it)
-        stop = torch.where(act, st, stop)
-        g_inf = torch.where(act, gi, g_inf)
+            take = act & accept
+            p = [torch.where(take, pn[j], p[j]) for j in range(m)]
+            chi2 = torch.where(act, chi2_sel, chi2)
+            mu = torch.where(act, mu_next, mu)
+            nu = torch.where(act, nu_next, nu)
+            it = torch.where(act, it + 1.0, it)
+            stop = torch.where(act, st, stop)
+            g_inf = torch.where(act, gi, g_inf)
+            act = (stop == 0.0) & (it < float(cfg.itmax))
+            more = _any_active(act)
 
+    if profiling.enabled():
+        # a pass adds one iteration to each lane active in it
+        profiling.count("lm.lanes", passes * it.numel())
+        profiling.count("lm.active_lanes", int(it.sum(dtype=torch.float64)))
     stop_out = torch.where(stop == 0.0, zero + float(StopReason.MAX_ITERATIONS), stop)
     return PallasFitResult(p=torch.stack(p, dim=-1), chi2=chi2, iters=it,
                            stop=stop_out.to(torch.int32), g_inf=g_inf, mu=mu, nu=nu)

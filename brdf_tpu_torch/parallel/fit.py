@@ -61,6 +61,7 @@ from brdf_tpu_torch.solver.varpro import (
     varpro_fit_fresnel_lin,
     varpro_fit_nd,
 )
+from brdf_tpu_torch.utils.profiling import span
 
 ENGINES = ("auto", "pallas", "xla", "varpro")
 
@@ -168,28 +169,39 @@ def _fit_pipeline(model, angles, target, opts, p0, weights, lower, upper, engine
         p0 = p0.to(dev)
     rounds = robust_iters if robust is not None else 0
 
-    def irls_weights(res):
-        return robust_weights(spec.fn(res.p, angles) - target, weights, kind=robust,
-                              axis_name=view_axis)
+    def irls_weights(res, rnd):
+        with span("fit.reweight", round=rnd):
+            return robust_weights(spec.fn(res.p, angles) - target, weights, kind=robust,
+                                  axis_name=view_axis)
+
+    def irls(first, solve):
+        """Round 0 (``first()``), then the IRLS rounds: round ``i`` reweights
+        by round ``i − 1``'s result ``r`` and refits by ``solve(weights, r)``."""
+        with span("fit.solve", round=0):
+            res = first()
+        for rnd in range(1, rounds + 1):
+            w = irls_weights(res, rnd)
+            with span("fit.solve", round=rnd):
+                res = solve(w, res)
+            del w       # freed before the next round's weights are made
+        return res
 
     if engine == "varpro":
         k = min(opts.itmax, 16)
         if view_axis is None:
-            res = _fit_varpro(model, angles, target, weights, p0, k, lower_t, upper_t)
-            for _ in range(rounds):
-                res = _fit_varpro(model, angles, target, irls_weights(res),
-                                  res.p if p0 is not None else None, k, lower_t, upper_t)
-            return res
+            return irls(
+                lambda: _fit_varpro(model, angles, target, weights, p0, k, lower_t, upper_t),
+                lambda w, r: _fit_varpro(model, angles, target, w,
+                                         r.p if p0 is not None else None, k, lower_t, upper_t))
         # the eager tiers start from the grid init over every view, as the
         # JAX package's do; the Fresnel lobe's keeps its own roughness grid
         own_grid = p0 is None and model == "cook_torrance_fresnel"
         if p0 is None and not own_grid:
             p0 = linear_grid_init(model, angles, target, weights=weights, axis_name=view_axis)
-        res = _fit_varpro_views(model, angles, target, weights, p0, k, lower_t, upper_t)
-        for _ in range(rounds):
-            res = _fit_varpro_views(model, angles, target, irls_weights(res),
-                                    None if own_grid else res.p, k, lower_t, upper_t)
-        return res
+        return irls(
+            lambda: _fit_varpro_views(model, angles, target, weights, p0, k, lower_t, upper_t),
+            lambda w, r: _fit_varpro_views(model, angles, target, w, None if own_grid else r.p,
+                                           k, lower_t, upper_t))
 
     fit = _fit_fused_lm if engine == "pallas" else _fit_eager_lm
     t = target.shape[0]
@@ -202,11 +214,10 @@ def _fit_pipeline(model, angles, target, opts, p0, weights, lower, upper, engine
         torch.as_tensor(x).to(dev) for x in warm_state)
     if p0 is None:
         p0 = linear_grid_init(model, angles, target, weights=weights, axis_name=view_axis)
-    res = fit(model, angles, target, weights, p0, warm, opts, lower_t, upper_t, view_axis)
-    for _ in range(rounds):
-        res = fit(model, angles, target, irls_weights(res), res.p, warm0, opts, lower_t,
-                  upper_t, view_axis)
-    return res
+    return irls(
+        lambda: fit(model, angles, target, weights, p0, warm, opts, lower_t, upper_t, view_axis),
+        lambda w, r: fit(model, angles, target, w, r.p, warm0, opts, lower_t, upper_t,
+                         view_axis))
 
 
 def fit_texels(

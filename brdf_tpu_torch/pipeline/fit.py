@@ -31,6 +31,7 @@ single-process JAX mesh does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -74,7 +75,9 @@ from brdf_tpu_torch.solver.lm import LMOptions, LMResult, StopReason, levmar_bc
 from brdf_tpu_torch.solver.robust import robust_weights, saturation_weights
 from brdf_tpu_torch.solver.stats import corcoef, covariance_from_normal, stddev
 from brdf_tpu_torch.solver.varpro_joint import varpro_fit_joint
+from brdf_tpu_torch.utils import profiling
 from brdf_tpu_torch.utils.checkpoint import latest_step
+from brdf_tpu_torch.utils.profiling import span
 
 
 class TexelProblem(NamedTuple):
@@ -90,6 +93,21 @@ class TexelProblem(NamedTuple):
     normals: np.ndarray | None = None  # (T, 3) texel shading normals
 
 
+def _problem_span(build):
+    """Record a builder's call as a ``problem.build`` span with its texels
+    and views."""
+
+    @functools.wraps(build)
+    def wrapper(scene, *args, **kwargs):
+        with span("problem.build") as sp:
+            problem = build(scene, *args, **kwargs)
+            sp.set(texels=len(problem.face_ids), views=scene.num_views)
+        return problem
+
+    return wrapper
+
+
+@_problem_span
 def build_face_problem(
     scene: Scene, dtype=np.float32, with_geometry: bool = False,
     tangent_frame: bool = False, shadow_weights: bool = False,
@@ -157,6 +175,7 @@ def build_face_problem(
     )
 
 
+@_problem_span
 def build_pixel_problem(
     scene: Scene,
     reference_view: int = 0,
@@ -611,60 +630,65 @@ def fit_per_texel(
     first from the parameters the last one returned (K1, K8 and
     ``varpro_fit_fresnel_lin`` all skip their grid for a start).
     """
-    dev = _fit_device(device, mesh)
-    spec = MODELS[model]
-    if spec.tangent and problem.angles.cos_th is None:
-        if problem.geometry is None:
-            raise ValueError(
-                f"model {model!r} needs tangent-frame angles: build the problem with "
-                "tangent_frame=True (or with its geometry)"
-            )
-        geom = type(problem.geometry)(*(
-            x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-            for x in problem.geometry))
-        ang_np = angles_from_geometry_np(geom, tangent_frame=True)
-        problem = problem._replace(angles=ShadingAngles(*(torch.as_tensor(a) for a in ang_np)))
     t, v, c = problem.intensity.shape
-    if opts is None:
-        opts = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=60)
-
-    # fold channels into the batch: angles/weights repeat per channel
-    ang_rep = ShadingAngles(*(
-        None if a is None else torch.as_tensor(a).to(dev).repeat_interleave(c, dim=0)
-        for a in problem.angles
-    ))
-    intensity = torch.as_tensor(problem.intensity).to(dev)
-    target = intensity.permute(0, 2, 1).reshape(t * c, v)
-    w_rep = torch.as_tensor(problem.weights).to(dev).repeat_interleave(c, dim=0)
-    if mask_saturation:
-        w_rep = w_rep * saturation_weights(target)
-    if mesh is not None:
-        ang_rep, target, w_rep = _texel_view_block(mesh, ang_rep, target, w_rep)
-    view_axis = VIEW_AXIS if mesh is not None and mesh.view > 1 else None
-
-    if checkpointer is not None and chunk_iters > 0:
-        res = _fit_chunked(
-            model, ang_rep, target, dev, opts, w_rep, engine, checkpointer, chunk_iters,
-            resume, lower=lower, upper=upper, mesh=mesh,
-        )
-        if robust is not None:
-            for _ in range(robust_iters):
-                with use_mesh(mesh):
-                    w_irls = robust_weights(spec.fn(res.p, ang_rep) - target, w_rep, kind=robust,
-                                            axis_name=view_axis)
-                res = _fit_block(
-                    model, ang_rep, target, dev, mesh, opts=opts, weights=w_irls, p0=res.p,
-                    engine=engine, lower=lower, upper=upper,
+    with span("fit", texels=t, views=v, channels=c, engine=engine):
+        dev = _fit_device(device, mesh)
+        spec = MODELS[model]
+        if spec.tangent and problem.angles.cos_th is None:
+            if problem.geometry is None:
+                raise ValueError(
+                    f"model {model!r} needs tangent-frame angles: build the problem with "
+                    "tangent_frame=True (or with its geometry)"
                 )
-    else:
-        res = _fit_block(
-            model, ang_rep, target, dev, mesh, opts=opts, weights=w_rep, engine=engine,
-            lower=lower, upper=upper, robust=robust,
-            robust_iters=robust_iters if robust else 0,
-        )
-    res = _gather_rows(res, mesh, DATA_AXIS, t * c)
-    params = res.p.reshape(t, c, spec.n_params)
-    result = LMResult(*(x.reshape(t, c) if x.ndim == 1 else x for x in res))
+            geom = type(problem.geometry)(*(
+                x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+                for x in problem.geometry))
+            ang_np = angles_from_geometry_np(geom, tangent_frame=True)
+            problem = problem._replace(
+                angles=ShadingAngles(*(torch.as_tensor(a) for a in ang_np)))
+        if opts is None:
+            opts = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=60)
+
+        # fold channels into the batch: angles/weights repeat per channel
+        with span("fit.upload") as up:
+            ang_rep = ShadingAngles(*(
+                None if a is None else torch.as_tensor(a).to(dev).repeat_interleave(c, dim=0)
+                for a in problem.angles
+            ))
+            intensity = torch.as_tensor(problem.intensity).to(dev)
+            target = intensity.permute(0, 2, 1).reshape(t * c, v)
+            w_rep = torch.as_tensor(problem.weights).to(dev).repeat_interleave(c, dim=0)
+            if profiling.enabled():
+                up.set(bytes=_nbytes(*problem.angles, problem.intensity, problem.weights))
+        if mask_saturation:
+            w_rep = w_rep * saturation_weights(target)
+        if mesh is not None:
+            ang_rep, target, w_rep = _texel_view_block(mesh, ang_rep, target, w_rep)
+        view_axis = VIEW_AXIS if mesh is not None and mesh.view > 1 else None
+
+        if checkpointer is not None and chunk_iters > 0:
+            res = _fit_chunked(
+                model, ang_rep, target, dev, opts, w_rep, engine, checkpointer, chunk_iters,
+                resume, lower=lower, upper=upper, mesh=mesh,
+            )
+            if robust is not None:
+                for _ in range(robust_iters):
+                    with use_mesh(mesh):
+                        w_irls = robust_weights(spec.fn(res.p, ang_rep) - target, w_rep,
+                                                kind=robust, axis_name=view_axis)
+                    res = _fit_block(
+                        model, ang_rep, target, dev, mesh, opts=opts, weights=w_irls, p0=res.p,
+                        engine=engine, lower=lower, upper=upper,
+                    )
+        else:
+            res = _fit_block(
+                model, ang_rep, target, dev, mesh, opts=opts, weights=w_rep, engine=engine,
+                lower=lower, upper=upper, robust=robust,
+                robust_iters=robust_iters if robust else 0,
+            )
+        res = _gather_rows(res, mesh, DATA_AXIS, t * c)
+        params = res.p.reshape(t, c, spec.n_params)
+        result = LMResult(*(x.reshape(t, c) if x.ndim == 1 else x for x in res))
     return FitReport(params=params, face_ids=problem.face_ids, result=result, model=model)
 
 
@@ -673,6 +697,11 @@ JOINT_ENGINES = ("auto", "pallas", "xla", "varpro")
 
 def _as_tensor(x, dev, dtype=None) -> torch.Tensor:
     return torch.as_tensor(x).to(device=dev, dtype=dtype)
+
+
+def _nbytes(*arrays) -> int:
+    """Bytes of the host arrays or tensors given (None counts nothing)."""
+    return sum(int(a.nbytes) for a in arrays if a is not None)
 
 
 def _joint_solve(base_model, spec: JointSpec, opts, max_tilt, engine, p0, geometry, intensity,
@@ -755,72 +784,81 @@ def fit_joint_normalmap(
     JAX package shards them over every axis), and every rank returns the
     whole result.
     """
-    if engine not in JOINT_ENGINES:
-        raise ValueError(f"unknown engine {engine!r}; choose from {JOINT_ENGINES}")
-    if problem.geometry is None:
-        raise ValueError("joint fit requires build_face_problem(with_geometry=True)")
-    dev = _fit_device(device, mesh)
-    spec = joint_spec(base_model, max_tilt=max_tilt)
-    if opts is None:
-        opts = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=40)
-    if engine == "auto":
-        engine = ("pallas" if dev.type == "cuda" and base_model in PALLAS_MODELS
-                  and spec.n_shape == 1 else "xla")
-    if spec.n_shape != 1 and engine in ("pallas", "varpro"):
-        raise ValueError(
-            f"joint engine {engine!r} supports single-shape (m=9) bases; "
-            f"the m={spec.n_params} joint fit for {base_model!r} runs on "
-            "engine='xla' (forward-mode Jacobian through perturbed_angles)"
-        )
+    t, v, c = problem.intensity.shape
+    with span("fit", texels=t, views=v, channels=c, engine=engine) as root:
+        if engine not in JOINT_ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; choose from {JOINT_ENGINES}")
+        if problem.geometry is None:
+            raise ValueError("joint fit requires build_face_problem(with_geometry=True)")
+        dev = _fit_device(device, mesh)
+        spec = joint_spec(base_model, max_tilt=max_tilt)
+        if opts is None:
+            opts = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=40)
+        if engine == "auto":
+            engine = ("pallas" if dev.type == "cuda" and base_model in PALLAS_MODELS
+                      and spec.n_shape == 1 else "xla")
+        if spec.n_shape != 1 and engine in ("pallas", "varpro"):
+            raise ValueError(
+                f"joint engine {engine!r} supports single-shape (m=9) bases; "
+                f"the m={spec.n_params} joint fit for {base_model!r} runs on "
+                "engine='xla' (forward-mode Jacobian through perturbed_angles)"
+            )
+        root.set(engine=engine)
+        with span("fit.upload") as up:
+            intensity = _as_tensor(problem.intensity, dev)
+            dtype = intensity.dtype
+            angles = ShadingAngles(*(None if a is None else _as_tensor(a, dev)
+                                     for a in problem.angles))
+            geometry = ShadingGeometry(*(_as_tensor(x, dev) for x in problem.geometry))
+            # per-channel weight stack (T, V, 3): the base weights (visibility
+            # masks, shared (T, V), or already per channel, e.g. a mask computed
+            # against unscaled measurements) times the per-channel saturation mask
+            w_base = _as_tensor(problem.weights, dev, dtype)
+            weights = w_base[..., None].repeat(1, 1, c) if w_base.ndim == 2 else w_base
+            if profiling.enabled():
+                up.set(bytes=_nbytes(problem.intensity, *problem.angles, *problem.geometry,
+                                     problem.weights))
+        if mask_saturation:
+            weights = weights * saturation_weights(intensity)
+        chan = None if channel_report is None else _as_tensor(channel_report.params, dev, dtype)
+        if mesh is not None:
+            # this rank's block of the texels, padded with zero-weight copies of
+            # the first texel to a multiple of every rank
+            pad = (-t) % mesh.world
+            rows = block_of(t + pad, mesh.world, mesh.rank)
 
-    intensity = _as_tensor(problem.intensity, dev)
-    dtype = intensity.dtype
-    c = intensity.shape[-1]
-    angles = ShadingAngles(*(None if a is None else _as_tensor(a, dev) for a in problem.angles))
-    geometry = ShadingGeometry(*(_as_tensor(x, dev) for x in problem.geometry))
-    # per-channel weight stack (T, V, 3): the base weights (visibility masks,
-    # shared (T, V), or already per channel, e.g. a mask computed against
-    # unscaled measurements) times the per-channel saturation mask
-    w_base = _as_tensor(problem.weights, dev, dtype)
-    weights = w_base[..., None].repeat(1, 1, c) if w_base.ndim == 2 else w_base
-    if mask_saturation:
-        weights = weights * saturation_weights(intensity)
-    chan = None if channel_report is None else _as_tensor(channel_report.params, dev, dtype)
-    t = intensity.shape[0]
-    if mesh is not None:
-        # this rank's block of the texels, padded with zero-weight copies of
-        # the first texel to a multiple of every rank
-        pad = (-t) % mesh.world
-        rows = block_of(t + pad, mesh.world, mesh.rank)
+            def cut(x, repeat=True):
+                return None if x is None else _pad_rows(x, pad, repeat)[rows].contiguous()
 
-        def cut(x, repeat=True):
-            return None if x is None else _pad_rows(x, pad, repeat)[rows].contiguous()
+            angles = ShadingAngles(*map(cut, angles))
+            geometry = ShadingGeometry(*map(cut, geometry))
+            intensity, weights, chan = cut(intensity), cut(weights, False), cut(chan)
 
-        angles = ShadingAngles(*map(cut, angles))
-        geometry = ShadingGeometry(*map(cut, geometry))
-        intensity, weights, chan = cut(intensity), cut(weights, False), cut(chan)
+        with torch.no_grad():
+            if chan is None:
+                chan = torch.stack(
+                    [linear_grid_init(base_model, angles, intensity[..., ch],
+                                      weights=weights[..., ch])
+                     for ch in range(c)], dim=1)
+            p0 = joint_p0_from_channelwise(chan)                               # (T, 8+k)
 
-    with torch.no_grad():
-        if chan is None:
-            chan = torch.stack(
-                [linear_grid_init(base_model, angles, intensity[..., ch], weights=weights[..., ch])
-                 for ch in range(c)], dim=1)
-        p0 = joint_p0_from_channelwise(chan)                               # (T, 8+k)
+            def solve(rnd, p_start, w):
+                with span("fit.solve", round=rnd):
+                    return _joint_solve(base_model, spec, opts, float(max_tilt), engine, p_start,
+                                        geometry, intensity, w)
 
-        def solve(p_start, w):
-            return _joint_solve(base_model, spec, opts, float(max_tilt), engine, p_start,
-                                geometry, intensity, w)
-
-        res = solve(p0, weights)
-        # IRLS rounds: per-channel robust weights from the JOINT residual (the
-        # fitted normal is part of the model, so shadowed and outlier views are
-        # downweighted against the joint prediction, not the raw-normal one)
-        for _ in range(int(robust_iters) if robust else 0):
-            resid = joint_eval(spec, res.p, geometry) - intensity          # (T, V, 3)
-            w_irls = robust_weights(resid.permute(0, 2, 1), weights.permute(0, 2, 1),
-                                    kind=robust).permute(0, 2, 1)
-            res = solve(res.p, w_irls)
-    return _gather_rows(res, mesh, ALL_AXES, t), spec
+            res = solve(0, p0, weights)
+            # IRLS rounds: per-channel robust weights from the JOINT residual (the
+            # fitted normal is part of the model, so shadowed and outlier views are
+            # downweighted against the joint prediction, not the raw-normal one)
+            for rnd in range(1, 1 + (int(robust_iters) if robust else 0)):
+                with span("fit.reweight", round=rnd):
+                    resid = joint_eval(spec, res.p, geometry) - intensity      # (T, V, 3)
+                    w_irls = robust_weights(resid.permute(0, 2, 1), weights.permute(0, 2, 1),
+                                            kind=robust).permute(0, 2, 1)
+                res = solve(rnd, res.p, w_irls)
+        out = _gather_rows(res, mesh, ALL_AXES, t)
+    return out, spec
 
 
 def fit_joint_normalmap_with_gains(

@@ -20,6 +20,7 @@ from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles, shading_angles
 from brdf_tpu_torch.models.normalmap import tangent_basis_np
 from brdf_tpu_torch.ops.shading import shade
 from brdf_tpu_torch.pipeline.scene import Scene
+from brdf_tpu_torch.utils.profiling import span
 
 
 def render_pixels(
@@ -109,6 +110,13 @@ def gather_covered_pixels(
     """Host-side gather of the per-covered-pixel shading inputs of a raster
     map: returns ``(cov (H, W) bool, pts (N, 3), nrm (N, 3), p_px (N, ...),
     valid (N,))``. Shared by point-light and environment relighting."""
+    with span("render.gather") as sp:
+        out = _gather(mesh, rm, params, face_ids, use_vertex_normals, normal_offsets)
+        sp.set(pixels=len(out[1]))
+    return out
+
+
+def _gather(mesh, rm, params, face_ids, use_vertex_normals, normal_offsets):
     if normal_offsets is not None:
         use_vertex_normals = False
 
@@ -168,15 +176,16 @@ def shade_raster_map(
         use_vertex_normals=use_vertex_normals, normal_offsets=normal_offsets,
     )
     shaded = _shade_on_device(model, p_px, pts, nrm, cam, lights, device)
-    img = np.full((cam.height, cam.width, params.shape[1]), background, np.float32)
-    img[cov] = shaded * valid[:, None]
+    with span("render.scatter"):
+        img = np.full((cam.height, cam.width, params.shape[1]), background, np.float32)
+        img[cov] = shaded * valid[:, None]
     return img
 
 
 def _shade_on_device(model, params, points, normals, cam, lights, device) -> np.ndarray:
     """``render_pixels`` on host arrays (geometry as float32, default engine),
     copied back: (N, C) NumPy."""
-    with torch.no_grad():
+    with span("render.shade", pixels=len(points), lights=len(lights)), torch.no_grad():
         shaded = render_pixels(
             model,
             np.asarray(params),
@@ -186,7 +195,7 @@ def _shade_on_device(model, params, points, normals, cam, lights, device) -> np.
             np.asarray(lights, np.float32),
             device=device,
         )
-    return shaded.cpu().numpy()
+        return shaded.cpu().numpy()
 
 
 def render_pixel_fit(
@@ -224,7 +233,9 @@ def relight(
     """Re-render under novel lighting — the capability the reference's `m`
     keypress preview approximated with a headlight at the eye
     (``glutcallbacks.cpp:346-445``)."""
-    return render_image(model, scene, params, face_ids, view=view, lights=lights, device=device)
+    with span("relight"):
+        return render_image(model, scene, params, face_ids, view=view, lights=lights,
+                            device=device)
 
 
 def orbit_cameras(

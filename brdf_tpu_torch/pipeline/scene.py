@@ -21,6 +21,7 @@ from brdf_tpu_torch.geometry.camera import Camera
 from brdf_tpu_torch.geometry.mesh import TriangleMesh
 from brdf_tpu_torch.geometry.rasterize import RasterMap, rasterize_mesh
 from brdf_tpu_torch.io import load_cal, load_scene_images, led_rig_positions
+from brdf_tpu_torch.utils.profiling import span
 
 # the disk tier of Scene.raster_map: a directory of this package's own
 CACHE_DIR_ENV = "BRDF_TPU_TORCH_CACHE_DIR"
@@ -50,16 +51,20 @@ class Scene:
         ``BRDF_TPU_TORCH_CACHE_DIR=`` empty to disable the disk tier)."""
         cam = self.cameras[view]
         key = id(cam)
-        if key not in self._raster_cache:
-            self._raster_cache[key] = self._raster_cached(cam)
+        with span("render.raster_map") as sp:
+            hit = "memory"
+            if key not in self._raster_cache:
+                self._raster_cache[key], hit = self._raster_cached(cam)
+            sp.set(hit=hit)
         return self._raster_cache[key]
 
-    def _raster_cached(self, cam: Camera) -> RasterMap:
+    def _raster_cached(self, cam: Camera) -> tuple[RasterMap, str]:
+        """The map and where it came from: ``"disk"`` or ``"miss"`` (rasterized)."""
         cache_dir = os.environ.get(CACHE_DIR_ENV, _default_cache_dir())
         if not cache_dir:
             return rasterize_mesh(
                 cam, np.asarray(self.mesh.vertices), np.asarray(self.mesh.faces)
-            )
+            ), "miss"
         verts = np.ascontiguousarray(np.asarray(self.mesh.vertices, np.float64))
         faces = np.ascontiguousarray(np.asarray(self.mesh.faces, np.int64))
         hsh = hashlib.sha1()
@@ -74,7 +79,7 @@ class Scene:
                 with np.load(path) as z:
                     return RasterMap(
                         face_id=z["face_id"], bary=z["bary"], depth=z["depth"]
-                    )
+                    ), "disk"
             except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
                 pass  # corrupt/partial cache entry: fall through and rebuild
         rm = rasterize_mesh(cam, verts, faces)
@@ -85,7 +90,7 @@ class Scene:
             os.replace(tmp, path)
         except OSError:
             pass  # cache dir unwritable: still return the fresh map
-        return rm
+        return rm, "miss"
 
     def eyes(self) -> np.ndarray:
         """(V, 3) camera position per view."""

@@ -17,6 +17,7 @@ import torch
 
 from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles
 from brdf_tpu_torch.parallel.mesh import axis_sum
+from brdf_tpu_torch.utils.profiling import span
 
 
 def default_shape_grid(model: str, num: int = 16) -> np.ndarray:
@@ -116,6 +117,11 @@ def linear_grid_init(
     best grid point and its neighbours (single-shape lobes), keeping it only
     where it lowers χ². Returns ``(..., n_params)`` clipped to the model box.
     """
+    with span("fit.init"):
+        return _linear_grid_init(model, angles, target, shape_grid, weights, refine, axis_name)
+
+
+def _linear_grid_init(model, angles, target, shape_grid, weights, refine, axis_name):
     spec = MODELS[model]
     n_lin = spec.linear
     k = spec.n_params - n_lin

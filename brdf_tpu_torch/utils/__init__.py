@@ -1,1 +1,1 @@
-"""Run-time utilities of the port: checkpoints, event logs, timers."""
+"""Run-time utilities of the port: checkpoints, event logs, spans and counters."""
