@@ -9,9 +9,10 @@
 // projected-gradient norm, Kanzow μ initialisation when no warm μ came in,
 // active-set freeze of bound-stuck coordinates, additive or Marquardt damping,
 // the closed-form damped solve (scalar, 2×2 and 3×3 Cramer, unrolled Cholesky
-// for m = 4, 5), box projection, trial χ², predicted reduction on the unfrozen
-// system, Nielsen's μ/ν control and the levmar stop codes, with the warm
-// (μ, ν, stop) resume rows of the start array.
+// for m = 4, 5; damped_solve.cuh, shared with lm_step.cu), box projection,
+// trial χ², predicted reduction on the unfrozen system, Nielsen's μ/ν control
+// and the levmar stop codes, with the warm (μ, ν, stop) resume rows of the
+// start array.
 //
 // What bounds it on an H100: operations, not bytes. A texel reads (A+2)·V
 // floats once and then evaluates its lobe 2·V times an iteration (Jacobian
@@ -77,13 +78,13 @@
 #include <math.h>
 
 #include "bvls2.cuh"
+#include "damped_solve.cuh"
 #include "lanegroup.cuh"
 #include "lobes.cuh"
 
 namespace {
 
 constexpr int kMaxParams = 5;
-constexpr float kTiny = 1e-30f;
 constexpr float kThird = static_cast<float>(1.0 / 3.0);
 constexpr int kThreads = 128;   // a block: four warps, 128 / S texels in flight
 constexpr int kMinBlocks = 4;   // 16 warps an SM: at most 128 registers a thread
@@ -98,7 +99,9 @@ constexpr float kStopSmallChi2 = 6.0f;
 constexpr float kStopInvalid = 7.0f;
 
 using brdf::clip_nan;
+using brdf::kTiny;
 using brdf::max_nan;
+using brdf::solve_damped;
 
 struct LmArgs {
   float lb[kMaxParams], ub[kMaxParams];
@@ -106,79 +109,6 @@ struct LmArgs {
   float itmax;    // iterations are counted as floats, as the output row stores them
   int marquardt;  // 0: JᵀJ + μI, 1: JᵀJ + μ·diag(JᵀJ)
 };
-
-// Closed-form symmetric solve dp = −Af⁻¹ gf; af[j][k] is read for j ≤ k only.
-template <int M>
-__device__ __forceinline__ bool solve_damped(float (&af)[M][M], float (&gf)[M],
-                                             float (&dp)[M]) {
-  if constexpr (M == 1) {
-    const float det = af[0][0];
-    const bool ok = fabsf(det) > kTiny;
-    const float inv = ok ? 1.0f / det : 0.0f;
-    dp[0] = -gf[0] * inv;
-    return ok;
-  } else if constexpr (M == 2) {
-    const float det = af[0][0] * af[1][1] - af[0][1] * af[0][1];
-    const bool ok = fabsf(det) > kTiny;
-    const float inv = ok ? 1.0f / det : 0.0f;
-    dp[0] = -(af[1][1] * gf[0] - af[0][1] * gf[1]) * inv;
-    dp[1] = -(af[0][0] * gf[1] - af[0][1] * gf[0]) * inv;
-    return ok;
-  } else if constexpr (M == 3) {
-    const float c00 = af[1][1] * af[2][2] - af[1][2] * af[1][2];
-    const float c01 = af[0][2] * af[1][2] - af[0][1] * af[2][2];
-    const float c02 = af[0][1] * af[1][2] - af[0][2] * af[1][1];
-    const float c11 = af[0][0] * af[2][2] - af[0][2] * af[0][2];
-    const float c12 = af[0][1] * af[0][2] - af[0][0] * af[1][2];
-    const float c22 = af[0][0] * af[1][1] - af[0][1] * af[0][1];
-    const float det = af[0][0] * c00 + af[0][1] * c01 + af[0][2] * c02;
-    const bool ok = fabsf(det) > kTiny;
-    const float inv = ok ? 1.0f / det : 0.0f;
-    dp[0] = -(c00 * gf[0] + c01 * gf[1] + c02 * gf[2]) * inv;
-    dp[1] = -(c01 * gf[0] + c11 * gf[1] + c12 * gf[2]) * inv;
-    dp[2] = -(c02 * gf[0] + c12 * gf[1] + c22 * gf[2]) * inv;
-    return ok;
-  } else {
-    // Cholesky A = L Lᵀ, unrolled; a pivot at or below kTiny flags the lane
-    float l[M][M];
-    bool ok = true;
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      float s = 0.0f;
-#pragma unroll
-      for (int k = 0; k < j; ++k) s += l[j][k] * l[j][k];
-      const float v = af[j][j] - s;
-      ok = ok && (v > kTiny);
-      l[j][j] = sqrtf(max_nan(v, kTiny));
-#pragma unroll
-      for (int i = j + 1; i < M; ++i) {
-        float c = 0.0f;
-#pragma unroll
-        for (int k = 0; k < j; ++k) c += l[i][k] * l[j][k];
-        l[i][j] = (af[j][i] - c) / l[j][j];
-      }
-    }
-    float yv[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {  // forward: L y = −g
-      float c = 0.0f;
-#pragma unroll
-      for (int k = 0; k < i; ++k) c += l[i][k] * yv[k];
-      yv[i] = (-gf[i] - c) / l[i][i];
-    }
-#pragma unroll
-    for (int i = M - 1; i >= 0; --i) {  // backward: Lᵀ dp = y
-      float c = 0.0f;
-#pragma unroll
-      for (int k = i + 1; k < M; ++k) c += l[k][i] * dp[k];
-      dp[i] = (yv[i] - c) / l[i][i];
-    }
-    const float okf = ok ? 1.0f : 0.0f;
-#pragma unroll
-    for (int i = 0; i < M; ++i) dp[i] = dp[i] * okf;
-    return ok;
-  }
-}
 
 // VPL > 0: VPL view slots a lane in registers; VPL == 0: the views staged in
 // shared memory, (A+2)·⌈V/S⌉ floats a lane

@@ -39,7 +39,7 @@ NVCC_FLAGS = [
     # the assembler's per-kernel report (registers, spills) goes to the log
     "-Xptxas", "-v",
 ]
-SOURCES = ("varpro", "lm", "lobes_eval", "shade", "ne", "joint_ne", "varpro_nd")
+SOURCES = ("varpro", "lm", "lobes_eval", "shade", "ne", "joint_ne", "varpro_nd", "lm_step")
 # nvcc's output, and its wall seconds, for each source built by this process
 BUILD_LOGS: dict[str, str] = {}
 BUILD_SECONDS: dict[str, float] = {}

@@ -33,10 +33,13 @@ them off by default (``lm_pallas.py:500-509``).
 
 :func:`chunked_lm_loop` is ``_chunked_lm_loop``: the box-projected LM of
 ``ops/lm.py`` (one solve per iteration, Kanzow μ init, active-set freeze,
-Nielsen μ/ν, the levmar stop codes, the warm ``(μ, ν, stop)`` resume) written
-as eager PyTorch on ``(T,)`` lanes around two kernel calls per iteration —
-the normal equations at the current point and χ² at the trial point. Its
-``while any(active)`` is one host synchronisation per iteration
+Nielsen μ/ν, the levmar stop codes, the warm ``(μ, ν, stop)`` resume) on
+``(T,)`` lanes, four launches an iteration: the normal equations at the
+current point, the step kernel that proposes the trial point, χ² at the
+trial point and the step kernel that accepts it (``csrc/lm_step.cu``;
+:func:`lm_step_propose` and :func:`lm_step_accept`, their plain versions
+:func:`lm_step_propose_plain` and :func:`lm_step_accept_plain` on the CPU).
+Its ``while any(active)`` is one host synchronisation per iteration
 (:data:`LOOP_SYNCS` counts them). On top of it sit the public functions with
 the JAX package's contracts: :func:`lm_fit_chunked`
 (``lm_fit_pallas_chunked``), :func:`shading_value_and_grad`,
@@ -74,10 +77,17 @@ MODES = {"chi2": 0, "grad": 1, "full": 2}
 JOINT_M = 9
 # base lobes of the joint kernel: the four with (kd, ks, shape) parameters
 JOINT_MODELS = tuple(n for n, s in SHADING_KERNELS.items() if s.n_params == 3)
-# Kernel launches since the counts were last reset: K6 ("ne"), K7 ("joint_ne").
-LAUNCHES = {"ne": 0, "joint_ne": 0}
+# Kernel launches since the counts were last reset: K6 ("ne"), K7 ("joint_ne")
+# and the eager LM loop's step kernels ("lm_step", csrc/lm_step.cu: two a pass).
+LAUNCHES = {"ne": 0, "joint_ne": 0, "lm_step": 0}
 # Host synchronisations made by chunked_lm_loop's ``any(active)`` test.
 LOOP_SYNCS = 0
+# The parameter counts the step kernels are built for: K6's lobes and the joint
+# model. Rows of a solve's lane state and of a pass's scratch, as
+# csrc/lm_step.cu indexes them.
+STEP_PARAMS = (1, 2, 3, 4, 5, JOINT_M)
+STATE_ROWS = ("chi2", "mu", "nu", "iters", "stop", "g_inf")
+SCRATCH_ROWS = ("mu_it", "grad_norm", "pred_reduction", "solver_ok", "small_dp", "grad_conv")
 
 _JOINT_OPTS = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=40)
 
@@ -430,47 +440,242 @@ def _split_full(out: torch.Tensor, m: int):
     return a, [out[idx + j] for j in range(m)]
 
 
+def _psum(terms, zero):
+    """A sum over parameters, from 0 upward (the kernels' order)."""
+    acc = zero
+    for x in terms:
+        acc = acc + x
+    return acc
+
+
+def lm_step_propose_plain(cfg: LMConfig, full, p, state, pn, scratch, active) -> None:
+    """``lm_step_propose_kernel``'s plain version, the first half of a pass:
+    from the ``full`` rows at ``p (m, T)`` and the lane state ``(6, T)``
+    (:data:`STATE_ROWS`), the projected-gradient norm, the Kanzow μ where no
+    (warm) μ came in, the active-set freeze, the damped solve, the box
+    projection and the predicted reduction. Writes the trial point into ``pn
+    (m, T)`` and :data:`SCRATCH_ROWS` into ``scratch (6, T)``, and zeroes the
+    ``active`` count."""
+    m = p.shape[0]
+    lb, ub = cfg.lower, cfg.upper
+    a, g = _split_full(full, m)
+    pr = [p[j] for j in range(m)]
+    mu, it = state[1], state[3]
+    zero = torch.zeros_like(mu)
+    one = zero + 1.0
+
+    pg = [torch.abs(pr[j] - torch.clamp(pr[j] - g[j], lb[j], ub[j])) for j in range(m)]
+    gi = functools.reduce(torch.maximum, pg)
+    grad_conv = gi <= cfg.eps1
+
+    # Kanzow μ only when no (warm) μ was carried in
+    max_diag = functools.reduce(torch.maximum, [a[(j, j)] for j in range(m)])
+    mu_it = torch.where((it == 0.0) & (mu <= 0.0), cfg.tau * max_diag, mu)
+
+    frozen = [((pr[j] <= lb[j]) & (g[j] > 0)) | ((pr[j] >= ub[j]) & (g[j] < 0))
+              for j in range(m)]
+    free = [torch.where(frozen[j], zero, one) for j in range(m)]
+    af = {}
+    for j in range(m):
+        af[(j, j)] = torch.where(frozen[j], one, a[(j, j)] + mu_it)
+    for j in range(m):
+        for k in range(j + 1, m):
+            af[(j, k)] = a[(j, k)] * free[j] * free[k]
+    gf = [g[j] * free[j] for j in range(m)]
+
+    dp, solver_ok = _solve_damped(af, gf, m)
+
+    pt = [torch.clamp(pr[j] + dp[j], lb[j], ub[j]) for j in range(m)]
+    dpa = [pt[j] - pr[j] for j in range(m)]           # the projected step
+    small_dp = _psum((x * x for x in dpa), zero) <= cfg.eps2_sq * _psum((x * x for x in pr), zero)
+
+    # predicted reduction −(2 gᵀδ + δᵀ JᵀJ δ) with the unfrozen system
+    q = [_psum((a[(min(j, k), max(j, k))] * dpa[k] for k in range(m)), zero) for j in range(m)]
+    g_dot = _psum((g[j] * dpa[j] for j in range(m)), zero)
+    q_dot = _psum((dpa[j] * q[j] for j in range(m)), zero)
+    dl = -(2.0 * g_dot + q_dot)
+
+    pn.copy_(torch.stack(pt))
+    scratch.copy_(torch.stack([mu_it, gi, dl, *(x.to(zero.dtype) for x in (solver_ok, small_dp,
+                                                                           grad_conv))]))
+    active.zero_()
+
+
+def lm_step_accept_plain(cfg: LMConfig, chi2_new, scratch, pn, p, state, active) -> None:
+    """``lm_step_accept_kernel``'s plain version, the second half of a pass:
+    from χ² at the trial point ``chi2_new (T,)`` and the proposal's scratch,
+    the accept, ρ, Nielsen's μ/ν and the stop codes (later assignments win).
+    A lane active at the pass's start takes the update, in place in ``p`` and
+    ``state``; a lane that has stopped keeps its state. ``active`` ← the lanes
+    still active."""
+    chi2, mu, nu, it, stop, g_inf = state
+    mu_it, gi, dl = scratch[0], scratch[1], scratch[2]
+    solver_ok, small_dp, grad_conv = (scratch[k] != 0.0 for k in (3, 4, 5))
+    zero = torch.zeros_like(chi2)
+    one = zero + 1.0
+    third = zero + 1.0 / 3.0
+    tiny = zero + _TINY
+    act = (stop == 0.0) & (it < float(cfg.itmax))
+
+    finite = torch.isfinite(chi2_new)
+    df = chi2 - chi2_new
+    accept = solver_ok & finite & (df > 0)
+    rho = torch.where(dl > 0, df / torch.maximum(dl, tiny), one)
+    tmp = 2.0 * rho - 1.0
+    mu_next = torch.where(accept, mu_it * torch.maximum(third, 1.0 - tmp * tmp * tmp), mu_it * nu)
+    nu_next = torch.where(accept, zero + 2.0, nu * 2.0)
+
+    st = zero
+    st = torch.where(mu_next > cfg.mu_max, zero + float(StopReason.NO_REDUCTION), st)
+    st = torch.where((~solver_ok) & (mu_it > cfg.half_mu_max), zero + float(StopReason.SINGULAR), st)
+    st = torch.where(small_dp & solver_ok, zero + float(StopReason.SMALL_DP), st)
+    chi2_sel = torch.where(accept, chi2_new, chi2)
+    st = torch.where(chi2_sel <= cfg.eps3, zero + float(StopReason.SMALL_CHI2), st)
+    st = torch.where(grad_conv, zero + float(StopReason.SMALL_GRADIENT), st)
+
+    p.copy_(torch.where(act & accept, pn, p))
+    state.copy_(torch.stack([torch.where(act, x_new, x) for x_new, x in (
+        (chi2_sel, chi2), (mu_next, mu), (nu_next, nu), (it + 1.0, it), (st, stop), (gi, g_inf))]))
+    still = (state[4] == 0.0) & (state[3] < float(cfg.itmax))
+    active.copy_(still.sum(dtype=torch.int32).reshape(1))
+
+
+@functools.lru_cache(maxsize=None)
+def _step_entries():
+    """The launch entries of ``csrc/lm_step.cu``: propose, accept."""
+    from brdf_tpu_torch.ops import _build
+
+    lib = _build.load("lm_step")
+    entries = (lib.brdf_lm_step_propose, lib.brdf_lm_step_accept)
+    for fn in entries:
+        fn.argtypes = [_I] + [_P] * 6 + [_I, _P, _P] + [ctypes.c_float] * 6 + [_I, _P]
+        fn.restype = ctypes.c_int
+    return entries
+
+
+def _check_count(name: str, active: torch.Tensor, device) -> None:
+    if (not active.is_cuda or active.dtype != torch.int32 or active.shape != (1,)
+            or active.device != device):
+        raise ValueError(f"{name}'s active count is an int32 CUDA tensor of 1 on the lanes' device")
+
+
+def _step_dims(name: str, cfg: LMConfig, p) -> tuple[int, int]:
+    """``(m, T)`` of the parameter rows ``p``, for an m the step kernels are
+    built for and a box of m entries."""
+    if p.ndim != 2 or p.shape[0] not in STEP_PARAMS:
+        raise ValueError(f"{name} is built for m in {STEP_PARAMS} parameter rows, "
+                         f"got p {tuple(p.shape)}")
+    m, t = p.shape
+    if len(cfg.lower) != m or len(cfg.upper) != m:
+        raise ValueError(f"{name}: {m} parameter rows, bounds {cfg.lower}/{cfg.upper}")
+    if t >= 2**31:
+        raise ValueError(f"{name} covers fewer than 2^31 lanes a launch, got T={t}")
+    return m, t
+
+
+def _step_cuda(which: int, name: str, cfg: LMConfig, active, operands) -> None:
+    """Check and launch step kernel ``which`` (0 propose, 1 accept) on the
+    ``(tensor, shape)`` pairs ``operands``, in the entry's order."""
+    _check_cuda(name, *(x for x, _ in operands))
+    device = operands[0][0].device
+    _check_count(name, active, device)
+    if any(tuple(x.shape) != shape for x, shape in operands):
+        raise ValueError(f"{name} shapes: got {[tuple(x.shape) for x, _ in operands]}, "
+                         f"want {[shape for _, shape in operands]}")
+    m, t = len(cfg.lower), operands[0][1][-1]
+    if t == 0:
+        if which == 0:
+            active.zero_()
+        return
+    lower = (ctypes.c_float * m)(*cfg.lower)
+    upper = (ctypes.c_float * m)(*cfg.upper)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = _step_entries()[which](
+            m, *(x.data_ptr() for x, _ in operands), active.data_ptr(), t, lower, upper, cfg.eps1,
+            cfg.eps2_sq, cfg.eps3, cfg.mu_max, cfg.half_mu_max, cfg.tau, cfg.itmax, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} (csrc/lm_step.cu) launch failed with cudaError {err}")
+    LAUNCHES["lm_step"] += 1
+
+
+def lm_step_propose_cuda(cfg: LMConfig, full, p, state, pn, scratch, active) -> None:
+    """Launch ``lm_step_propose_kernel`` on CUDA tensors: the arguments of
+    :func:`lm_step_propose_plain`."""
+    m, t = _step_dims("lm_step_propose", cfg, p)
+    _step_cuda(0, "lm_step_propose", cfg, active, (
+        (full, (ne_rows_count(m, "full"), t)), (p, (m, t)), (state, (len(STATE_ROWS), t)),
+        (pn, (m, t)), (scratch, (len(SCRATCH_ROWS), t))))
+
+
+def lm_step_accept_cuda(cfg: LMConfig, chi2_new, scratch, pn, p, state, active) -> None:
+    """Launch ``lm_step_accept_kernel`` on CUDA tensors: the arguments of
+    :func:`lm_step_accept_plain`."""
+    m, t = _step_dims("lm_step_accept", cfg, p)
+    _step_cuda(1, "lm_step_accept", cfg, active, (
+        (chi2_new, (t,)), (scratch, (len(SCRATCH_ROWS), t)), (pn, (m, t)), (p, (m, t)),
+        (state, (len(STATE_ROWS), t))))
+
+
+def lm_step_propose(cfg: LMConfig, full, p, state, pn, scratch, active) -> None:
+    """The step kernel for CUDA tensors, its plain version for CPU tensors."""
+    if p.is_cuda:
+        return lm_step_propose_cuda(cfg, full, p, state, pn, scratch, active)
+    if p.device.type == "cpu":
+        return lm_step_propose_plain(cfg, full, p, state, pn, scratch, active)
+    raise ValueError(f"the LM step kernels run on cuda or cpu, not {p.device}")
+
+
+def lm_step_accept(cfg: LMConfig, chi2_new, scratch, pn, p, state, active) -> None:
+    """The step kernel for CUDA tensors, its plain version for CPU tensors."""
+    if p.is_cuda:
+        return lm_step_accept_cuda(cfg, chi2_new, scratch, pn, p, state, active)
+    if p.device.type == "cpu":
+        return lm_step_accept_plain(cfg, chi2_new, scratch, pn, p, state, active)
+    raise ValueError(f"the LM step kernels run on cuda or cpu, not {p.device}")
+
+
 def chunked_lm_loop(cfg: LMConfig, rows_fn, p_init: torch.Tensor, warm=None) -> PallasFitResult:
     """The LM control loop of the chunked tier on ``(T,)`` lanes.
 
     ``rows_fn(mode, p_rows (m, T)) -> (R, T)`` evaluates the normal equations
     (``"full"``) or χ² alone (``"chi2"``); ``p_init (m, T)`` is projected onto
-    the box first. One pass is: normal equations at the current point (one
-    kernel launch), projected-gradient norm, Kanzow μ when no warm μ came in,
-    active-set freeze, the damped solve, box projection, χ² at the trial point
-    (a second launch), predicted reduction, Nielsen's μ/ν and the stop codes,
-    later assignments winning. A lane that has stopped keeps its state. The
+    the box first. One pass is four launches: the normal equations at the
+    current point, :func:`lm_step_propose` (projected-gradient norm, Kanzow μ
+    when no warm μ came in, active-set freeze, the damped solve, box
+    projection, predicted reduction), χ² at the trial point and
+    :func:`lm_step_accept` (Nielsen's μ/ν and the stop codes, later
+    assignments winning). A lane that has stopped keeps its state. The
     damping is additive (``opts.damping`` is not read, as in the reference).
-    The loop ends when no lane is active, which costs one host
-    synchronisation per pass.
+    The lane state lives in one ``(6, T)`` tensor for the whole solve. The
+    loop ends when no lane is active, which costs one host synchronisation
+    per pass (the step's active count).
 
     With recording on (``utils/profiling.py``) the call is an ``lm.solve``
     span and each pass an ``lm.pass`` span, from its first launch to the
     activity test that ends it (the host synchronisation that waits for the
     pass); at the end the counters ``lm.lanes`` and ``lm.active_lanes`` add
     T for every pass and the lanes active in each, which is the sum of the
-    lanes' iterations (one read of the device; counting at each activity
-    test would add a bool-to-int cast kernel a pass)."""
+    lanes' iterations (one read of the device)."""
     with span("lm.solve"):
         return _lm_loop(cfg, rows_fn, p_init, warm)
 
 
-def _any_active(act: torch.Tensor) -> bool:
-    """Whether any lane is active: the loop's one host synchronisation a pass."""
+def _any_active(active: torch.Tensor) -> bool:
+    """Whether any lane is active, from the ``(1,)`` count: the loop's one
+    host synchronisation a pass."""
     global LOOP_SYNCS
     LOOP_SYNCS += 1
-    return bool(act.any())
+    return bool(active.item())
 
 
-def _lm_loop(cfg: LMConfig, rows_fn, p_init: torch.Tensor, warm) -> PallasFitResult:
-    m = p_init.shape[0]
-    lb, ub = cfg.lower, cfg.upper
-    p_rows = _clip_rows(p_init, cfg)
-    chi2 = rows_fn("chi2", p_rows)[0]
+def _lm_loop(cfg: LMConfig, rows_fn, p_init: torch.Tensor, warm, steps=None) -> PallasFitResult:
+    # ``steps`` replaces (lm_step_propose, lm_step_accept), for a test that
+    # runs the plain step functions on the card; no public function sets it
+    propose, accept = steps or (lm_step_propose, lm_step_accept)
+    p = _clip_rows(p_init, cfg)
+    chi2 = rows_fn("chi2", p)[0]
     zero = torch.zeros_like(chi2)
-    one = zero + 1.0
-    third = zero + 1.0 / 3.0
-    tiny = zero + _TINY
 
     if warm is None:
         mu, nu, stop_w = zero, zero + 2.0, zero
@@ -480,93 +685,30 @@ def _lm_loop(cfg: LMConfig, rows_fn, p_init: torch.Tensor, warm) -> PallasFitRes
         nu = torch.where(torch.isfinite(nu_w) & (nu_w >= 2.0), nu_w, zero + 2.0)
     stop0 = torch.where(torch.isfinite(chi2), zero, zero + float(StopReason.INVALID_VALUES))
     stop = torch.where(stop_w != 0.0, stop_w, stop0)
-    it = zero.clone()
-    g_inf = zero + 3.4e38
-    p = [p_rows[j] for j in range(m)]
+    # the solve's lane state (STATE_ROWS), the trial point and the scratch,
+    # updated in place by every pass
+    state = torch.stack([chi2, mu, nu, zero, stop, zero + 3.4e38])
+    pn = torch.empty_like(p)
+    scratch = torch.empty_like(state)
+    active = ((state[4] == 0.0) & (state[3] < float(cfg.itmax))).sum(dtype=torch.int32).reshape(1)
 
-    def psum(terms):
-        acc = zero
-        for x in terms:
-            acc = acc + x
-        return acc
-
-    act = (stop == 0.0) & (it < float(cfg.itmax))
-    more = _any_active(act)
+    more = _any_active(active)
     passes = 0
     while more:
         passes += 1
         with span("lm.pass"):
-            a, g = _split_full(rows_fn("full", torch.stack(p)), m)
+            propose(cfg, rows_fn("full", p), p, state, pn, scratch, active)
+            accept(cfg, rows_fn("chi2", pn)[0], scratch, pn, p, state, active)
+            more = _any_active(active)
 
-            pg = [torch.abs(p[j] - torch.clamp(p[j] - g[j], lb[j], ub[j])) for j in range(m)]
-            gi = functools.reduce(torch.maximum, pg)
-            grad_conv = gi <= cfg.eps1
-
-            # Kanzow μ only when no (warm) μ was carried in
-            max_diag = functools.reduce(torch.maximum, [a[(j, j)] for j in range(m)])
-            mu_it = torch.where((it == 0.0) & (mu <= 0.0), cfg.tau * max_diag, mu)
-
-            frozen = [((p[j] <= lb[j]) & (g[j] > 0)) | ((p[j] >= ub[j]) & (g[j] < 0))
-                      for j in range(m)]
-            free = [torch.where(frozen[j], zero, one) for j in range(m)]
-            af = {}
-            for j in range(m):
-                af[(j, j)] = torch.where(frozen[j], one, a[(j, j)] + mu_it)
-            for j in range(m):
-                for k in range(j + 1, m):
-                    af[(j, k)] = a[(j, k)] * free[j] * free[k]
-            gf = [g[j] * free[j] for j in range(m)]
-
-            dp, solver_ok = _solve_damped(af, gf, m)
-
-            pn = [torch.clamp(p[j] + dp[j], lb[j], ub[j]) for j in range(m)]
-            dpa = [pn[j] - p[j] for j in range(m)]           # the projected step
-            small_dp = psum(x * x for x in dpa) <= cfg.eps2_sq * psum(x * x for x in p)
-
-            chi2_new = rows_fn("chi2", torch.stack(pn))[0]
-            finite = torch.isfinite(chi2_new)
-            df = chi2 - chi2_new
-
-            # predicted reduction −(2 gᵀδ + δᵀ JᵀJ δ) with the unfrozen system
-            q = [psum(a[(min(j, k), max(j, k))] * dpa[k] for k in range(m)) for j in range(m)]
-            g_dot = psum(g[j] * dpa[j] for j in range(m))
-            q_dot = psum(dpa[j] * q[j] for j in range(m))
-            dl = -(2.0 * g_dot + q_dot)
-
-            accept = solver_ok & finite & (df > 0)
-            rho = torch.where(dl > 0, df / torch.maximum(dl, tiny), one)
-            tmp = 2.0 * rho - 1.0
-            mu_next = torch.where(accept, mu_it * torch.maximum(third, 1.0 - tmp * tmp * tmp),
-                                  mu_it * nu)
-            nu_next = torch.where(accept, zero + 2.0, nu * 2.0)
-
-            st = zero
-            st = torch.where(mu_next > cfg.mu_max, zero + float(StopReason.NO_REDUCTION), st)
-            st = torch.where((~solver_ok) & (mu_it > cfg.half_mu_max),
-                             zero + float(StopReason.SINGULAR), st)
-            st = torch.where(small_dp & solver_ok, zero + float(StopReason.SMALL_DP), st)
-            chi2_sel = torch.where(accept, chi2_new, chi2)
-            st = torch.where(chi2_sel <= cfg.eps3, zero + float(StopReason.SMALL_CHI2), st)
-            st = torch.where(grad_conv, zero + float(StopReason.SMALL_GRADIENT), st)
-
-            take = act & accept
-            p = [torch.where(take, pn[j], p[j]) for j in range(m)]
-            chi2 = torch.where(act, chi2_sel, chi2)
-            mu = torch.where(act, mu_next, mu)
-            nu = torch.where(act, nu_next, nu)
-            it = torch.where(act, it + 1.0, it)
-            stop = torch.where(act, st, stop)
-            g_inf = torch.where(act, gi, g_inf)
-            act = (stop == 0.0) & (it < float(cfg.itmax))
-            more = _any_active(act)
-
+    chi2, mu, nu, it, stop, g_inf = state
     if profiling.enabled():
         # a pass adds one iteration to each lane active in it
         profiling.count("lm.lanes", passes * it.numel())
         profiling.count("lm.active_lanes", int(it.sum(dtype=torch.float64)))
     stop_out = torch.where(stop == 0.0, zero + float(StopReason.MAX_ITERATIONS), stop)
-    return PallasFitResult(p=torch.stack(p, dim=-1), chi2=chi2, iters=it,
-                           stop=stop_out.to(torch.int32), g_inf=g_inf, mu=mu, nu=nu)
+    return PallasFitResult(p=p.T.contiguous(), chi2=chi2, iters=it, stop=stop_out.to(torch.int32),
+                           g_inf=g_inf, mu=mu, nu=nu)
 
 
 def _views_major(x: torch.Tensor) -> torch.Tensor:

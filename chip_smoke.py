@@ -171,6 +171,7 @@ JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -2343,6 +2344,175 @@ def phase_joint_main_path(errs: list[float]) -> tuple[int, dict, tuple]:
     return launches, out, (problem, report)
 
 
+# the eager LM loop's step kernels (csrc/lm_step.cu): one lobe of each K6
+# parameter count for the chunked tier, and the lane counts they are timed at
+# (the joint benchmark cell's 8203 faces, the joint main path's T_JOINT)
+STEP_LOBES = {1: "lambert", 2: "minnaert", 3: "cook_torrance", 4: "cook_torrance_fresnel",
+              5: "ward_aniso"}
+STEP_LANES = (8203, T_JOINT)
+LOOP_FIELDS = ("p", "chi2", "iters", "stop", "g_inf", "mu", "nu")
+
+
+def plain_steps():
+    """The eager LM loop with its plain step functions, on the same tensors."""
+    return mock.patch.object(k6, "_lm_loop", functools.partial(
+        k6._lm_loop, steps=(k6.lm_step_propose_plain, k6.lm_step_accept_plain)))
+
+
+def loop_equality(fit) -> dict:
+    """``fit()`` over the step kernels against the same call over the plain
+    step functions: each field equal bit for bit, the passes, the step
+    kernels' launches."""
+    syncs, launches = k6.LOOP_SYNCS, k6.LAUNCHES["lm_step"]
+    res = fit()
+    torch.cuda.synchronize()
+    passes = k6.LOOP_SYNCS - syncs
+    steps = k6.LAUNCHES["lm_step"] - launches
+    with plain_steps():
+        ref = fit()
+    torch.cuda.synchronize()
+    check(k6.LAUNCHES["lm_step"] == launches + steps, "the plain steps must not count as a launch")
+    fields = {f: bool(same(getattr(res, f).float(), getattr(ref, f).float()).all())
+              for f in LOOP_FIELDS}
+    return dict(equal=fields, syncs=passes, step_launches=steps,
+                iters_max=int(res.iters.max()), stops=torch.bincount(res.stop.long(), minlength=8).tolist())
+
+
+def step_case(rng: np.random.Generator, model: str, t: int, v: int):
+    """Random angles (every channel), parameters inside the lobe's box and
+    noisy targets under random weights, texel-major, for the chunked tier."""
+    spec = MODELS[model]
+    as_t = lambda x: torch.tensor(x, dtype=torch.float32, device=DEVICE)  # noqa: E731
+    lo, hi = np.asarray(spec.lower, np.float64), np.asarray(spec.upper, np.float64)
+    span_ = np.minimum(hi, lo + 1.0) - lo
+    true_p = lo + span_ * rng.uniform(0.2, 0.8, (t, len(lo)))
+    p0 = np.clip(true_p * rng.uniform(0.7, 1.4, true_p.shape), lo, hi)
+    cols = {name: rng.uniform(-1.0 if name in ("cos_rv",) or name.startswith(("cos_t", "cos_b"))
+                              else 0.05, 1.0, (t, v)) for name in ShadingAngles._fields}
+    ang = ShadingAngles(**{k: as_t(x) for k, x in cols.items()})
+    with torch.no_grad():
+        y = spec.fn(as_t(true_p), ang) + as_t(rng.normal(0.0, 0.01, (t, v)))
+    return ang, y, as_t(rng.uniform(0.3, 1.0, (t, v))), as_t(p0)
+
+
+def step_bytes(m: int, t: int) -> dict:
+    """Bytes each step kernel moves on ``t`` active lanes, each read once and
+    each write once: the proposal reads the full rows, p and (μ, it) and
+    writes pn and the scratch; the accept reads χ² at pn, five state rows and
+    six scratch rows and writes the six state rows. A lane whose step is
+    taken also moves pn into p (2m floats), left out: a floor."""
+    r = k6.ne_rows_count(m, "full")
+    return dict(propose=4.0 * t * (r + m + 2 + m + 6), accept=4.0 * t * (1 + 5 + 6 + 6))
+
+
+def step_timing(base: str, t: int) -> dict:
+    """Each step kernel's time a launch (20 back-to-back launches between two
+    CUDA events, median of 3) at ``t`` lanes of the joint model, on rows K7
+    gives at a start near the truth, beside its byte bound."""
+    rng = np.random.default_rng(66)
+    geom = shading_geometry(*synthetic_scene(rng, t, V))
+    true_p = joint_params(rng, t, base, 0.2)
+    spec = joint_spec(base)
+    with torch.no_grad():
+        target = joint_eval(spec, true_p, geom)
+    lv, y, w, frame = k6._joint_prep(geom, target, None)
+    cfg = k5.solve_config(base, k6._JOINT_OPTS, spec.lower, spec.upper)
+    p = (true_p * 1.05).T.contiguous()
+    full = k6.joint_ne_rows(base, "full", lv, y, w, p, frame)
+    state = torch.stack([full[0], torch.zeros_like(full[0]), torch.full_like(full[0], 2.0),
+                         torch.zeros_like(full[0]), torch.zeros_like(full[0]),
+                         torch.full_like(full[0], 3.4e38)]).contiguous()
+    pn, scratch = torch.empty_like(p), torch.empty_like(state)
+    active = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    k6.lm_step_propose(cfg, full, p, state, pn, scratch, active)
+    chi2 = k6.joint_ne_rows(base, "chi2", lv, y, w, pn, frame)[0]
+    p_start, state_start = p.clone(), state.clone()
+
+    def accept():
+        # every lane active at each launch: the copies are kernels of their own
+        p.copy_(p_start)
+        state.copy_(state_start)
+        k6.lm_step_accept(cfg, chi2, scratch, pn, p, state, active)
+
+    out = {}
+    nbytes = step_bytes(k6.JOINT_M, t)
+    for name, call in (("propose", lambda: k6.lm_step_propose(cfg, full, p, state, pn, scratch, active)),
+                       ("accept", accept)):
+        out[name] = dict(ms=kernel_device_ms(call, 20, f"lm_step_{name}_kernel"),
+                         host_ms=cuda_ms(call, 20), bytes=nbytes[name],
+                         bound_ms=nbytes[name] / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    return out
+
+
+def kernel_device_ms(call, reps: int, kernel: str) -> float:
+    """A kernel's device time a launch from ``torch.profiler`` over ``reps``
+    calls: where each call is a few µs on the device and tens on the host,
+    CUDA events around back-to-back calls time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    found = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA") and kernel in e.key]
+    return sum(us for us, _ in found) / 1e3 / max(sum(c for _, c in found), 1)
+
+
+def phase_lm_step() -> dict:
+    """The eager LM loop over its step kernels against the same loop over the
+    plain step functions, on the same CUDA inputs: ``fit_joint_normalmap``
+    at T_JOINT × 16 for each base lobe of the joint kernel (the defaults, and
+    for cook_torrance the benchmark cell's two huber rounds), a warm resume
+    of ``lm_fit_joint_chunked`` for each, and the K6 tier at 384 views for a
+    lobe of each parameter count. Every field equal bit for bit; two step
+    launches a pass. Then each step kernel's time a launch and registers."""
+    out: dict = {"joint": {}, "chunked": {}}
+    k6.LAUNCHES["lm_step"] = 0
+    for i, base in enumerate(k6.JOINT_MODELS):
+        rng = np.random.default_rng(70 + i)
+        problem, _ = joint_problem_on_card(rng, T_JOINT, base)
+        cases = {"cold": dict()}
+        if base == "cook_torrance":
+            cases["cold_huber"] = dict(robust="huber", robust_iters=2)
+        for name, kw in cases.items():
+            eq = loop_equality(lambda: fit_joint_normalmap(problem, base, engine="pallas", **kw)[0])
+            solves = 1 + kw.get("robust_iters", 0)
+            check(eq["step_launches"] == 2 * (eq["syncs"] - solves),
+                  f"joint {base} {name}: {eq['step_launches']} step launches in "
+                  f"{eq['syncs'] - solves} passes")
+            out["joint"][f"{base}/{name}"] = eq
+        spec = joint_spec(base)
+        geom, y = problem.geometry, problem.intensity
+        lo, hi = (torch.tensor(b, device=DEVICE) for b in (spec.lower, spec.upper))
+        p0 = torch.minimum(torch.maximum(joint_params(rng, T_JOINT, base, 0.2) * 1.2, lo), hi)
+        kw = dict(lower=tuple(spec.lower), upper=tuple(spec.upper))
+        first = k6.lm_fit_joint_chunked(base, geom, y, p0, opts=k6._JOINT_OPTS._replace(itmax=6), **kw)
+        warm = (first.mu, first.nu, torch.where(first.stop == 3, 0, first.stop).float())
+        eq = loop_equality(lambda: k6.lm_fit_joint_chunked(base, geom, y, first.p, warm=warm, **kw))
+        check(eq["step_launches"] == 2 * (eq["syncs"] - 1), f"joint {base} warm: {eq}")
+        out["joint"][f"{base}/warm"] = eq
+        del problem, geom, y, first
+    rng = np.random.default_rng(69)
+    for m, model in STEP_LOBES.items():
+        spec = MODELS[model]
+        ang, y, w, p0 = step_case(rng, model, T_CHUNKED, V_CHUNKED)
+        kw = dict(weights=w, opts=CHUNKED_OPTS, lower=tuple(spec.lower), upper=tuple(spec.upper))
+        eq = loop_equality(lambda: k6.lm_fit_chunked(model, ang, y, p0, **kw))
+        check(eq["step_launches"] == 2 * (eq["syncs"] - 1), f"chunked {model}: {eq}")
+        out["chunked"][f"{model}/m={m}"] = eq
+        del ang, y, w, p0
+    for key, eq in (*out["joint"].items(), *out["chunked"].items()):
+        log(f"step kernels against the plain steps, {key}: {eq}")
+        check(all(eq["equal"].values()), f"{key}: step kernels against the plain steps {eq['equal']}")
+    out["timing"] = {f"joint/{t}": step_timing("cook_torrance", t) for t in STEP_LANES}
+    out["ptxas"] = _build.ptxas_report(_build.BUILD_LOGS.get("lm_step", ""))
+    log(f"step kernels: timing {out['timing']}, ptxas {out['ptxas']}")
+    return out
+
+
 def phase_joint_closed_loop() -> dict:
     """scene → per-channel fit → joint fit → image with fitted normals: the
     serve scene's 16 LED views rendered from known cook_torrance parameters
@@ -3676,6 +3846,8 @@ def main() -> int:
     k7_launches, joint_main, joint_inputs = phase_joint_main_path(errs_k7)
     check(k7_launches > 0, "the joint main path never launched K7")
     lap("joint main path")
+    lm_step = phase_lm_step()
+    lap("the eager LM loop's step kernels")
     ne_timing = phase_ne_timing(joint_inputs)
     del joint_inputs
     lap("K6 and K7 timing, joint fit breakdown")
@@ -3725,7 +3897,7 @@ def main() -> int:
             "main_path_calls": {k: v for k, v in lm_timing.items() if k != "lm-general-row"},
             "main_path": lm_main_path, "main_path_warm": lm_breakdown, "chunked": chunked,
             "ptxas": {k: v for k, v in ptxas_numbers().items()
-                      if k not in ("varpro", "shade", "ne", "joint_ne", "varpro_nd")},
+                      if k not in ("varpro", "shade", "ne", "joint_ne", "varpro_nd", "lm_step")},
         },
         "numbers_render": {
             "card": card, "kernel": "K2, K3, K4 shading forward and backward (csrc/shade.cu)",
@@ -3738,7 +3910,8 @@ def main() -> int:
             "kernel": "K6 normal equations (csrc/ne.cu), K7 joint normal equations (csrc/joint_ne.cu)",
             "k6_parity": ne_parity, "k7_parity": joint_ne_parity, "autograd": ne_autograd,
             "chunked_tier": chunked_tier, "main_path": joint_main, "closed_loop": joint_loop,
-            "timing": ne_timing, "build_s": dict(_build.BUILD_SECONDS, all_sources=build_s),
+            "timing": ne_timing, "lm_step": lm_step,
+            "build_s": dict(_build.BUILD_SECONDS, all_sources=build_s),
             "ptxas": {name: ptxas_by_mode(ptxas_numbers()[name]) for name in ("ne", "joint_ne")},
         },
         "numbers_varpro_nd": {

@@ -128,7 +128,8 @@ assert not bad, bad
 assert {"ne", "joint_ne"} <= set(_build.SOURCES) and not _build.BUILD_LOGS
 assert _build.load.cache_info().currsize == 0 and native.load.cache_info().currsize == 0
 assert ne._ne_entry.cache_info().currsize == 0 and ne._joint_entry.cache_info().currsize == 0
-assert ne.LAUNCHES == {"ne": 0, "joint_ne": 0} and ne.LOOP_SYNCS == 0
+assert ne.LAUNCHES == {"ne": 0, "joint_ne": 0, "lm_step": 0} and ne.LOOP_SYNCS == 0
+assert "lm_step" in _build.SOURCES and ne._step_entries.cache_info().currsize == 0
 print("clean")
 """
     env = {k: v for k, v in __import__("os").environ.items() if k != "PYTHONPATH"}
@@ -193,7 +194,7 @@ def test_entry_points_of_the_joint_tier_need_a_device_or_say_so():
     z = torch.zeros(1, 4, 2)
     with pytest.raises(ValueError, match="CUDA"):
         ne.ne_rows_cuda("lambert", "chi2", z, z[0], None, torch.zeros(1, 2))
-    assert ne.LAUNCHES == {"ne": 0, "joint_ne": 0}
+    assert ne.LAUNCHES == {"ne": 0, "joint_ne": 0, "lm_step": 0}
 
 
 def test_entry_points_of_the_render_path_need_a_device_or_say_so():

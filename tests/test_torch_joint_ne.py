@@ -168,5 +168,5 @@ def test_wrapper_checks_base_mode_device_and_weight_shapes():
     ones, _ = ne.joint_value_and_grad("cook_torrance", torch.tensor(params), tg, torch.tensor(target),
                                       weights=torch.ones(8, 4))
     assert torch.equal(chi2, ones)
-    assert ne.LAUNCHES == {"ne": 0, "joint_ne": 0}
+    assert ne.LAUNCHES == {"ne": 0, "joint_ne": 0, "lm_step": 0}
     assert set(ne.JOINT_MODELS) == {"blinn_phong", "phong", "cook_torrance", "ward"}

@@ -192,5 +192,5 @@ def test_wrapper_checks_mode_device_and_shapes():
         ne.ne_rows_cuda("lambert", "chi2", ang, y, None, p)
     with pytest.raises(ValueError, match="tangent_frame"):
         ne.shading_value_and_grad("ward_aniso", torch.zeros(8, 5), ta, torch.tensor(target))
-    assert ne.LAUNCHES == {"ne": 0, "joint_ne": 0}
+    assert ne.LAUNCHES == {"ne": 0, "joint_ne": 0, "lm_step": 0}
     assert [ne.ne_rows_count(5, mode) for mode in ("chi2", "grad", "full")] == [1, 6, 21]
