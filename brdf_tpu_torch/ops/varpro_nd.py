@@ -55,6 +55,8 @@ from brdf_tpu_torch.solver.varpro import (
     _solve_damped_sym,
     shape_box,
 )
+from brdf_tpu_torch.utils import profiling
+from brdf_tpu_torch.utils.profiling import span
 
 _TINY = 1e-30
 # the kernel's limit on grid d-tuples (csrc/varpro_nd.cu kMaxGrid):
@@ -339,13 +341,27 @@ def varpro_fit_fused_nd(
     grid_points: int = 8,
 ) -> VarProResult:
     """The fused d-D VarPro solve: K8 for CUDA tensors, its plain version for
-    CPU tensors. Same public contract as ``varpro_fit_pallas_nd``."""
+    CPU tensors. Same public contract as ``varpro_fit_pallas_nd``.
+
+    With recording on (``utils/profiling.py``) the call is a ``varpro_nd``
+    span (model, lanes, views, grid tuples, iterations, whether a start was
+    given, angle channels staged) around the layout work and the launch, and
+    the counters ``varpro_nd.steps`` and ``varpro_nd.accepted`` add the
+    lanes × iterations of the fixed schedule and the accepted Newton steps
+    summed over the lanes (one read of the device)."""
     cfg = config(model, lower, upper, grid_points)
-    ang, y, w, p0_rows = stack_inputs(model, angles, target, weights, p0)
-    if target.is_cuda:
-        out = varpro_nd_rows_cuda(cfg, ang, y, w, p0_rows, iters)
-    elif target.device.type == "cpu":
-        out = varpro_nd_rows_plain(cfg, ang, y, w, p0_rows, iters)
-    else:
-        raise ValueError(f"the fused d-D VarPro solve runs on cuda or cpu, not {target.device}")
+    t, v = target.shape
+    with span("varpro_nd", model=model, lanes=t, views=v, grid=len(cfg.grid), iters=int(iters),
+              with_p0=p0 is not None, angles=len(SHADING_KERNELS[model].angle_names)):
+        ang, y, w, p0_rows = stack_inputs(model, angles, target, weights, p0)
+        if target.is_cuda:
+            out = varpro_nd_rows_cuda(cfg, ang, y, w, p0_rows, iters)
+        elif target.device.type == "cpu":
+            out = varpro_nd_rows_plain(cfg, ang, y, w, p0_rows, iters)
+        else:
+            raise ValueError(
+                f"the fused d-D VarPro solve runs on cuda or cpu, not {target.device}")
+    if profiling.enabled():
+        profiling.count("varpro_nd.steps", t * int(iters))
+        profiling.count("varpro_nd.accepted", int(out[3 + cfg.d].sum(dtype=torch.float64)))
     return rows_to_result(out, cfg.d)
