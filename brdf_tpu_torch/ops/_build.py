@@ -39,7 +39,8 @@ NVCC_FLAGS = [
     # the assembler's per-kernel report (registers, spills) goes to the log
     "-Xptxas", "-v",
 ]
-SOURCES = ("varpro", "lm", "lobes_eval", "shade", "ne", "joint_ne", "varpro_nd", "lm_step")
+SOURCES = ("varpro", "lm", "lobes_eval", "shade", "ne", "joint_ne", "varpro_nd", "lm_step",
+           "grid_init")
 # nvcc's output, and its wall seconds, for each source built by this process
 BUILD_LOGS: dict[str, str] = {}
 BUILD_SECONDS: dict[str, float] = {}

@@ -207,7 +207,7 @@ from brdf_tpu_torch.models.brdf import (  # noqa: E402
 )
 from brdf_tpu_torch.models.normalmap import joint_eval, joint_spec, tangent_basis  # noqa: E402
 from brdf_tpu_torch.ops import _build, lm as k5, ne as k6, shading as k0, varpro as k1  # noqa: E402
-from brdf_tpu_torch.ops import varpro_nd as k8  # noqa: E402
+from brdf_tpu_torch.ops import grid_init as gi, varpro_nd as k8  # noqa: E402
 from brdf_tpu_torch.parallel import fit as pfit  # noqa: E402
 from brdf_tpu_torch.parallel.mesh import VIEW_AXIS, initialize_multihost, make_mesh  # noqa: E402
 from brdf_tpu_torch.pipeline import fit as pipeline_fit  # noqa: E402
@@ -222,10 +222,11 @@ from brdf_tpu_torch.pipeline.fit import (  # noqa: E402
     fit_joint_normalmap_with_gains,
     fit_per_texel,
 )
-from brdf_tpu_torch.solver.init import linear_grid_init  # noqa: E402
+from brdf_tpu_torch.solver.init import default_shape_grid, linear_grid_init  # noqa: E402
 from brdf_tpu_torch.solver.lm import LMOptions  # noqa: E402
 from brdf_tpu_torch.solver.robust import saturation_weights  # noqa: E402
 from brdf_tpu_torch.utils.checkpoint import FitCheckpointer, latest_step, load_fit_state  # noqa: E402
+from tools.grid_init_agreement import agreement as grid_init_agreement  # noqa: E402
 from tools.synthetic_scene import write_scene  # noqa: E402
 
 T_BENCH, V = 131072, 16
@@ -1007,14 +1008,16 @@ def phase_lm_main_path(errs: list[float]) -> tuple[int, dict, dict]:
     torch.cuda.synchronize()
     reports, counts = {}, {}
     k5.LAUNCHES = 0                              # the LM main path starts here
+    init_counts = {}
     for name, cfg in LM_MAIN_PATH.items():
-        before = k5.LAUNCHES
+        before, init_before = k5.LAUNCHES, gi.LAUNCHES
         t0 = time.perf_counter()
         rep = _lm_fit(problems[name], cfg)
         torch.cuda.synchronize()
         reports[name] = (rep, time.perf_counter() - t0)
         SINGLE_FITS[name] = rep.result
         counts[name] = k5.LAUNCHES - before
+        init_counts[name] = gi.LAUNCHES - init_before
     launches = k5.LAUNCHES                       # ... and ends here
     out = {}
     for name, cfg in LM_MAIN_PATH.items():
@@ -1023,6 +1026,8 @@ def phase_lm_main_path(errs: list[float]) -> tuple[int, dict, dict]:
         check(counts[name] == 1 + cfg["robust_iters"],
               f"{name}: engine='auto' launched K5 {counts[name]} times, "
               f"expected {1 + cfg['robust_iters']}")
+        # one grid init a fit: the channels are one batch of T·C lanes
+        check(init_counts[name] == 1, f"{name}: {init_counts[name]} grid init launches, expected 1")
         res = rep.result
         check(rep.params.shape == (T_BENCH, CHANNELS, m), f"{name}: parameters of shape (T, C, m)")
         check(bool(((res.stop >= 1) & (res.stop <= 7)).all()), f"{name}: a final stop code on every lane")
@@ -1041,7 +1046,8 @@ def phase_lm_main_path(errs: list[float]) -> tuple[int, dict, dict]:
         check(k5.LAUNCHES == before, "the plain stand-in must not count as a launch")
         share = report_share(rep, ref)
         errs.append(share["max_abs_err"])
-        out[name] = dict(launches=counts[name], fits=T_BENCH * CHANNELS, first_wall_s=secs,
+        out[name] = dict(launches=counts[name], grid_init_launches=init_counts[name],
+                         fits=T_BENCH * CHANNELS, first_wall_s=secs,
                          chi2_median=float(res.chi2.median()),
                          converged_fraction=rep.converged_fraction(),
                          iters_mean=float(res.iters.double().mean()),
@@ -2241,7 +2247,7 @@ def phase_joint_main_path(errs: list[float]) -> tuple[int, dict, tuple]:
     torch.cuda.synchronize()
     reset_ne_counts()                            # the joint main path starts here
     for name, kw in fits.items():
-        before, syncs = k6.LAUNCHES["joint_ne"], k6.LOOP_SYNCS
+        before, syncs, init_before = k6.LAUNCHES["joint_ne"], k6.LOOP_SYNCS, gi.LAUNCHES
         t0 = time.perf_counter()
         res, spec = fit_joint_normalmap(problem, **kw)
         torch.cuda.synchronize()
@@ -2250,7 +2256,11 @@ def phase_joint_main_path(errs: list[float]) -> tuple[int, dict, tuple]:
             SINGLE_FITS["joint-grid_init"] = res
         counts[name] = dict(launches=k6.LAUNCHES["joint_ne"] - before,
                             passes=k6.LOOP_SYNCS - syncs - solves[name],
+                            grid_init_launches=gi.LAUNCHES - init_before,
                             first_wall_s=time.perf_counter() - t0)
+        # the grid init launches once a channel where no channel report is given
+        check(counts[name]["grid_init_launches"] == (3 if name == "grid_init" else 0),
+              f"{name}: {counts[name]['grid_init_launches']} grid init launches")
     launches = k6.LAUNCHES["joint_ne"]           # ... and ends here
     check(k6.LAUNCHES["ne"] == 0, "the joint fit launched K6")
 
@@ -2342,6 +2352,67 @@ def phase_joint_main_path(errs: list[float]) -> tuple[int, dict, tuple]:
     check(corr > 0.8, f"fitted gains against the rig's: {out['gains']}")
     k5.LAUNCHES = saved_k5
     return launches, out, (problem, report)
+
+
+# the grid init kernel (csrc/grid_init.cu) at the two benchmark cells' shapes
+# its launch replaced: ct-joint-face-16led.fit's per-channel init (8203 faces)
+# and blinn-pixel-16led.lm's (104452 pixels × 3 channels), 16 views, G = 16
+GRID_INIT_SHAPES = {"ct-joint-face": ("cook_torrance", 8203),
+                    "blinn-pixel-lm": ("blinn_phong", 313356)}
+# FP32 operations of the grid init outside the lobe, counted from
+# csrc/grid_init.cu as LOBE_OPS is: a (view, point)'s five products and sums
+# (nine for the weighted bases' products), a (texel, point)'s _nnls2 and cost
+GRID_INIT_ACC_OPS, GRID_INIT_SOLVE_OPS = 14, 45
+
+
+def grid_init_operations(model: str, t: int, v: int, n_grid: int) -> float:
+    """The value alone of LM_LOBE_OPS once for each (view, point): the two
+    bases share their shape terms, so this is a floor."""
+    value = LM_LOBE_OPS[model][0]
+    return float(t) * (v + n_grid * (v * (value + GRID_INIT_ACC_OPS) + GRID_INIT_SOLVE_OPS))
+
+
+def grid_init_bytes(model: str, t: int, v: int) -> float:
+    """Angles, y and w read once, the start written once."""
+    a = len(k0.SHADING_KERNELS[model].angle_names)
+    return 4.0 * t * ((a + 2) * v + MODELS[model].n_params)
+
+
+def phase_grid_init() -> dict:
+    """The grid init kernel alone between CUDA events at the benchmark cells'
+    shapes, beside its bound and the plain version's time on the same
+    inputs; then the kernel held to the plain version under the card tests'
+    bar (tools/grid_init_agreement.py), with an all-NaN, a zero-weight and an
+    all-zero lane put in."""
+    out = {}
+    saved = gi.LAUNCHES
+    for name, (model, t) in GRID_INIT_SHAPES.items():
+        rng = np.random.default_rng(90)
+        ang, target, _ = make_problem(rng, t, V, model)
+        w = torch.tensor(rng.uniform(0.2, 1.0, (t, V)), dtype=torch.float32, device=DEVICE)
+        grid = default_shape_grid(model)
+        ang_s, y, ww, _ = gi.stack_inputs(model, ang, target, w)
+        kernel_ms = cuda_ms(lambda: gi.grid_init_cuda(model, ang_s, y, ww, grid), 50)
+        plain_ms = cuda_ms(lambda: gi.linear_grid_init_plain(model, ang, target, grid, w), 3)
+        target[1] = float("nan")
+        w[2] = 0.0
+        target[3] = 0.0
+        got = gi.linear_grid_init_fused(model, ang, target, grid, w)
+        held = grid_init_agreement(model, ang, target, grid, w, got)
+        bound = bound_of(grid_init_bytes(model, t, V), grid_init_operations(model, t, V, len(grid)))
+        out[name] = dict(model=model, texels=t, views=V, grid=len(grid), kernel_ms=kernel_ms,
+                         plain_ms=plain_ms, speedup=plain_ms / kernel_ms, **bound,
+                         roofline_share=bound["bound_ms"] / kernel_ms, agreement=held,
+                         **gi.occupancy(model, V))
+        log(f"grid init {name}: {out[name]}")
+        check(not held["failures"] and held["edge_lanes"] >= 3,
+              f"grid init {name}: the kernel against the plain version: {held}")
+        check(out[name]["roofline_share"] <= 1.05, f"grid init {name}: above its bound")
+        del ang, target, w, ang_s, y, ww, got
+    gi.LAUNCHES = saved                           # timing launches are not a main path's
+    out["ptxas"] = _build.ptxas_report(_build.BUILD_LOGS.get("grid_init", ""))
+    log(f"grid init ptxas: {out['ptxas']}")
+    return out
 
 
 # the eager LM loop's step kernels (csrc/lm_step.cu): one lobe of each K6
@@ -3258,18 +3329,21 @@ FRONT_ENV_SAMPLES = 256
 
 def front_counts() -> dict:
     return {"K1": k1.LAUNCHES, "K2": k0.SHADE_LAUNCHES["fwd"], "K5": k5.LAUNCHES,
-            "K6": k6.LAUNCHES["ne"], "K7": k6.LAUNCHES["joint_ne"], "K8": k8.LAUNCHES}
+            "K6": k6.LAUNCHES["ne"], "K7": k6.LAUNCHES["joint_ne"], "K8": k8.LAUNCHES,
+            "grid_init": gi.LAUNCHES}
 
 
 def reset_front_counts() -> None:
-    k1.LAUNCHES = k5.LAUNCHES = k8.LAUNCHES = 0
+    k1.LAUNCHES = k5.LAUNCHES = k8.LAUNCHES = gi.LAUNCHES = 0
     reset_shade_counts()
     reset_ne_counts()
 
 
 def all_plain() -> ExitStack:
     """Every kernel the front end can reach with its plain version stood in on
-    the card: the reference each CLI fit is held against."""
+    the card: the reference each CLI fit is held against. The grid init
+    kernel stays in, so both sides start from the same points (its plain
+    version sums views in another order; phase_grid_init compares the two)."""
     stack = plain_shading()
     for target, name, plain in ((pfit, "varpro_fit_fused", _plain_fused),
                                 (k5, "lm_rows_cuda", k5.lm_rows_plain),
@@ -3441,7 +3515,7 @@ def phase_front_end(work: str) -> tuple[dict, dict]:
     out["launches_by_run"] = counts_by_run
     out["serve_launches"] = serve_counts
     log(f"front end launches {launches}, by run {counts_by_run}, serve {serve_counts}")
-    for kernel in ("K1", "K2", "K5", "K6", "K7"):
+    for kernel in ("K1", "K2", "K5", "K6", "K7", "grid_init"):
         check(launches[kernel] > 0, f"the front end never launched {kernel}: {launches}")
     check(serve_counts["K2"] == 5 + 12, f"the serve commands launched K2 {serve_counts['K2']} times")
     check(counts_by_run["bunny-ct-pixel"]["K6"] == 1, "fit --stats launched K6 not once")
@@ -3814,6 +3888,8 @@ def main() -> int:
     lm_breakdown = phase_breakdown(lm_problems, LM_MAIN_PATH, _lm_fit, "lm_kernel")
     lap("LM timing and breakdown")
     del lm_problems, gates_row
+    grid_init_timing = phase_grid_init()
+    lap("grid init kernel timing")
 
     # K2-K4, the serve path and the closed loop, with a raster-map cache of
     # this run's own that goes when the run ends
@@ -3896,6 +3972,7 @@ def main() -> int:
             "lm_general_row": dict(lm_timing["lm-general-row"], **lm_gates),
             "main_path_calls": {k: v for k, v in lm_timing.items() if k != "lm-general-row"},
             "main_path": lm_main_path, "main_path_warm": lm_breakdown, "chunked": chunked,
+            "grid_init": grid_init_timing,
             "ptxas": {k: v for k, v in ptxas_numbers().items()
                       if k not in ("varpro", "shade", "ne", "joint_ne", "varpro_nd", "lm_step")},
         },

@@ -13,6 +13,7 @@ from brdf_tpu.models.brdf import MODELS as J_MODELS, ShadingAngles as JAngles  #
 from brdf_tpu.solver import init as jinit, robust as jrobust, varpro as jvarpro  # noqa: E402
 from brdf_tpu.solver.lm import LMResult as JResult  # noqa: E402
 from brdf_tpu_torch import convert  # noqa: E402
+from brdf_tpu_torch.ops import grid_init  # noqa: E402
 from brdf_tpu_torch.solver import init as tinit, robust as trobust, varpro as tvarpro  # noqa: E402
 from brdf_tpu_torch.solver.lm import LMResult, StopReason  # noqa: E402
 from torch_port_inputs import ALL_LOBES, SEPARABLE, agreement, angle_columns, true_params  # noqa: E402
@@ -47,7 +48,7 @@ def test_bvls2_and_nnls2_match_jax():
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-12, atol=1e-14)
     assert (tk[0].numpy() >= box[0]).all() and (tk[1].numpy() <= box[3]).all()
     jn = jinit._nnls2(*(jnp.asarray(x) for x in (aa, ab, bb, ay, by)))
-    tn = tinit._nnls2(*(torch.tensor(x) for x in (aa, ab, bb, ay, by)))
+    tn = grid_init._nnls2(*(torch.tensor(x) for x in (aa, ab, bb, ay, by)))
     for j, t in zip(jn, tn):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-12, atol=1e-14)
 
