@@ -11,6 +11,14 @@ is kept in :data:`BUILD_LOGS` and read with :func:`ptxas_report`, and each
 build's wall seconds in :data:`BUILD_SECONDS`; :func:`sass` reads a built
 library's machine code back with ``cuobjdump``.
 
+Every ``csrc`` source exports plain C functions that take raw pointers and
+scalars and return a ``cudaError``: a launch takes the stream last, an
+occupancy query an int array that it fills. An :class:`Entry` names one
+such function and its argument types; :func:`lookup` types it once, and
+:func:`launch` and :func:`query` call it and raise on an error. Before a
+launch a wrapper holds its tensors to :func:`check_operands`, and
+:func:`on_cuda` picks between a kernel and its plain version.
+
 Nothing here runs at import time: this module is imported on machines that
 have no ``nvcc`` and no GPU.
 """
@@ -18,6 +26,7 @@ have no ``nvcc`` and no GPU.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import os
 import re
@@ -27,6 +36,8 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -153,3 +164,73 @@ def build_all() -> list[Path]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built at first use."""
     return ctypes.CDLL(str(build(name)))
+
+
+# the argument types of the C entries
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Entry:
+    """One C function of ``csrc/<source>.cu``: ``kernel`` names it in
+    messages, ``symbol`` is its exported name and ``argtypes`` its
+    arguments, the stream or the filled int array last. Making one loads
+    nothing."""
+
+    kernel: str
+    source: str
+    symbol: str
+    argtypes: tuple
+
+
+@functools.lru_cache(maxsize=None)
+def lookup(entry: Entry):
+    """``entry``'s C function with its argument types and its ``cudaError``
+    return, its library built and loaded at first use."""
+    fn = getattr(load(entry.source), entry.symbol)
+    fn.argtypes = entry.argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_operands(kernel: str, first: torch.Tensor, *rest: torch.Tensor) -> None:
+    """Refuse, naming ``kernel``, operands that are not contiguous float32
+    CUDA tensors on the device of the first."""
+    for x in (first, *rest):
+        if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{kernel} takes contiguous float32 CUDA tensors")
+        if x.device != first.device:
+            raise ValueError(f"{kernel}'s inputs must lie on one device")
+
+
+def launch(entry: Entry, device: torch.device, *args) -> None:
+    """Call the launch ``entry`` with ``args`` and the current stream of
+    ``device``, inside that device; a ``cudaError`` raises ``RuntimeError``
+    naming the kernel and its source."""
+    fn = lookup(entry)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry.kernel} (csrc/{entry.source}.cu) launch failed with "
+                           f"cudaError {err}")
+
+
+def query(entry: Entry, ints: int, *args) -> list[int]:
+    """Call the occupancy query ``entry`` with ``args`` and an array of
+    ``ints`` ints, which it fills with the CUDA runtime's figures."""
+    res = (ctypes.c_int * ints)()
+    err = lookup(entry)(*args, res)
+    if err != 0:
+        raise RuntimeError(f"{entry.kernel} occupancy query failed with cudaError {err}")
+    return list(res)
+
+
+def on_cuda(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (the kernel runs), False for a CPU tensor (its
+    plain version runs); on any other device ``ValueError`` says that
+    ``what`` (e.g. "the fused LM solve runs") on cuda or cpu only."""
+    if x.is_cuda:
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{what} on cuda or cpu, not {x.device}")

@@ -28,12 +28,12 @@ only where two points' costs tie within it.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles
+from brdf_tpu_torch.ops import _build
 from brdf_tpu_torch.ops.lanegroup import group_lanes, long_view_layout
 from brdf_tpu_torch.ops.shading import SHADING_KERNELS
 from brdf_tpu_torch.parallel.mesh import axis_sum
@@ -214,19 +214,11 @@ def kernel_layout(n_angles: int, v: int) -> tuple[int, int, int]:
     return lanes, -(-v // lanes), THREADS // lanes
 
 
-@functools.lru_cache(maxsize=None)
-def _entry():
-    from brdf_tpu_torch.ops import _build
-
-    lib = _build.load("grid_init")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.brdf_grid_init
-    fn.argtypes = [i, p, p, p, p, i, i, i, p, i, i, p, p, p]
-    fn.restype = ctypes.c_int
-    occ = lib.brdf_grid_init_occupancy
-    occ.argtypes = [i, i, i, p]
-    occ.restype = ctypes.c_int
-    return fn, occ
+_P, _I = _build.P, _build.I
+_GRID_INIT = _build.Entry("the grid init kernel", "grid_init", "brdf_grid_init",
+                          (_I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P))
+_OCCUPANCY = _build.Entry("the grid init kernel", "grid_init", "brdf_grid_init_occupancy",
+                          (_I, _I, _I, _P))
 
 
 def occupancy(model: str, v: int) -> dict:
@@ -235,10 +227,7 @@ def occupancy(model: str, v: int) -> dict:
     local-memory bytes a thread (the CUDA runtime's own figures)."""
     spec = SHADING_KERNELS[model]
     lanes, vpl, block_t = kernel_layout(len(spec.angle_names), v)
-    res = (ctypes.c_int * 4)()
-    err = _entry()[1](spec.lobe_id, v, lanes, res)
-    if err != 0:
-        raise RuntimeError(f"grid init occupancy query failed with cudaError {err}")
+    res = _build.query(_OCCUPANCY, 4, spec.lobe_id, v, lanes)
     return dict(lanes=lanes, views_per_lane=vpl, block_t=block_t, blocks_per_sm=res[0],
                 warps_per_sm=res[0] * res[3] // 32, registers=res[1], local_bytes=res[2])
 
@@ -259,18 +248,12 @@ def grid_init_cuda(model: str, ang, y, w, grid) -> torch.Tensor:
     if grid.ndim != 2 or grid.shape[1] != k or not 1 <= grid.shape[0] <= MAX_GRID:
         raise ValueError(f"the grid init kernel takes 1 to {MAX_GRID} grid points of {k} "
                          f"shape values for {model}, got a grid of shape {grid.shape}")
-    tensors = [ang, y] + ([] if w is None else [w])
     if ang.ndim != 3 or ang.shape[0] != n_angles or y.shape != ang.shape[1:] or (
             w is not None and w.shape != y.shape):
         raise ValueError(f"grid init shapes: {model} reads ang ({n_angles}, T, V), y and w (T, V); "
                          f"got ang {tuple(ang.shape)}, y {tuple(y.shape)}, "
                          f"w {None if w is None else tuple(w.shape)}")
-    if any(x.dtype != torch.float32 for x in tensors):
-        raise ValueError("the grid init kernel takes float32 tensors")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("the grid init kernel takes contiguous tensors")
-    if not all(x.is_cuda and x.device == ang.device for x in tensors):
-        raise ValueError("the grid init kernel takes tensors on one CUDA device")
+    _build.check_operands("the grid init kernel", ang, y, *(() if w is None else (w,)))
     _, t, v = ang.shape
     if t >= 2**31 or v >= 2**31 - 32:
         raise ValueError(f"the grid init kernel indexes texels and views with 32-bit ints; "
@@ -282,13 +265,9 @@ def grid_init_cuda(model: str, ang, y, w, grid) -> torch.Tensor:
     flat = (ctypes.c_float * grid.size)(*grid.ravel().tolist())
     lo = (ctypes.c_float * spec.n_params)(*spec.lower)
     hi = (ctypes.c_float * spec.n_params)(*spec.upper)
-    stream = torch.cuda.current_stream(ang.device).cuda_stream
-    with torch.cuda.device(ang.device):
-        err = _entry()[0](SHADING_KERNELS[model].lobe_id, ang.data_ptr(), y.data_ptr(),
-                          None if w is None else w.data_ptr(), out.data_ptr(), t, v, lanes,
-                          flat, grid.shape[0], k, lo, hi, stream)
-    if err != 0:
-        raise RuntimeError(f"grid init (csrc/grid_init.cu) launch failed with cudaError {err}")
+    _build.launch(_GRID_INIT, ang.device, SHADING_KERNELS[model].lobe_id, ang.data_ptr(),
+                  y.data_ptr(), None if w is None else w.data_ptr(), out.data_ptr(), t, v, lanes,
+                  flat, grid.shape[0], k, lo, hi)
     LAUNCHES += 1
     return out
 

@@ -372,17 +372,11 @@ def register_slots(n_angles: int, vpl: int) -> int:
     return vpl if vpl * (n_angles + 2) <= REGISTER_FLOATS else 0
 
 
-@functools.lru_cache(maxsize=None)
-def _entry():
-    lib = _build.load("lm")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.brdf_lm_fit
-    fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, p, p, i, f, f, f, f, f, f, i, i, p]
-    fn.restype = ctypes.c_int
-    occ = lib.brdf_lm_occupancy
-    occ.argtypes = [i, i, i, i, p]
-    occ.restype = ctypes.c_int
-    return fn, occ
+_P, _I, _F = _build.P, _build.I, _build.F
+_FIT = _build.Entry("K5", "lm", "brdf_lm_fit", (
+    _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _F, _F, _F, _F, _F, _F, _I, _I,
+    _P))
+_OCCUPANCY = _build.Entry("K5", "lm", "brdf_lm_occupancy", (_I, _I, _I, _I, _P))
 
 
 def occupancy(model: str, v: int) -> dict:
@@ -393,10 +387,7 @@ def occupancy(model: str, v: int) -> dict:
     spec = PALLAS_MODELS[model]
     lanes, vpl, block_t = lane_layout(len(spec.angle_names), v)
     slots = register_slots(len(spec.angle_names), vpl)
-    res = (ctypes.c_int * 5)()
-    err = _entry()[1](spec.lobe_id, slots, lanes, v, res)
-    if err != 0:
-        raise RuntimeError(f"K5 occupancy query failed with cudaError {err}")
+    res = _build.query(_OCCUPANCY, 5, spec.lobe_id, slots, lanes, v)
     return dict(lanes=lanes, views_per_lane=vpl, block_t=block_t, slots=slots,
                 blocks_per_sm=res[0], warps_per_sm=res[0] * res[3] // 32, registers=res[1],
                 local_bytes=res[2], persistent_blocks=res[0] * res[4])
@@ -408,11 +399,7 @@ def lm_rows_cuda(cfg: LMConfig, ang, y, w, p0_rows, counters=None) -> torch.Tens
     afterwards, is zeroed here: [0] the work counter, [1] the warps' trips."""
     global LAUNCHES
     a_count, v, t = ang.shape
-    for x in (ang, y, w, p0_rows):
-        if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError("K5 takes contiguous float32 CUDA tensors")
-        if x.device != ang.device:
-            raise ValueError("K5's inputs must lie on one device")
+    _build.check_operands("K5", ang, y, w, p0_rows)
     spec = PALLAS_MODELS[cfg.model]
     if (a_count != len(spec.angle_names) or y.shape != (v, t) or w.shape != (v, t)
             or p0_rows.shape != (8, t)):
@@ -434,15 +421,12 @@ def lm_rows_cuda(cfg: LMConfig, ang, y, w, p0_rows, counters=None) -> torch.Tens
     m = spec.n_params
     lower = (ctypes.c_float * m)(*cfg.lower)
     upper = (ctypes.c_float * m)(*cfg.upper)
-    stream = torch.cuda.current_stream(ang.device).cuda_stream
-    err = _entry()[0](
-        spec.lobe_id, ang.data_ptr(), y.data_ptr(), w.data_ptr(), p0_rows.data_ptr(),
-        out.data_ptr(), counters.data_ptr(), t, v, lanes, register_slots(a_count, vpl), int(REFILL),
-        lower, upper, m, cfg.eps1, cfg.eps2_sq, cfg.eps3, cfg.mu_max, cfg.half_mu_max, cfg.tau,
-        cfg.itmax, int(cfg.marquardt), stream,
+    _build.launch(
+        _FIT, ang.device, spec.lobe_id, ang.data_ptr(), y.data_ptr(), w.data_ptr(),
+        p0_rows.data_ptr(), out.data_ptr(), counters.data_ptr(), t, v, lanes,
+        register_slots(a_count, vpl), int(REFILL), lower, upper, m, cfg.eps1, cfg.eps2_sq,
+        cfg.eps3, cfg.mu_max, cfg.half_mu_max, cfg.tau, cfg.itmax, int(cfg.marquardt),
     )
-    if err != 0:
-        raise RuntimeError(f"K5 (csrc/lm.cu) launch failed with cudaError {err}")
     LAUNCHES += 1
     return out
 
@@ -474,13 +458,8 @@ def lm_fit_fused(
     # a view count the kernel does not take is refused on either device
     lane_layout(len(PALLAS_MODELS[model].angle_names), target.shape[1])
     ang, y, w, rows = stack_inputs(model, angles, target, p0, weights, warm)
-    if target.is_cuda:
-        out = lm_rows_cuda(cfg, ang, y, w, rows)
-    elif target.device.type == "cpu":
-        out = lm_rows_plain(cfg, ang, y, w, rows)
-    else:
-        raise ValueError(f"the fused LM solve runs on cuda or cpu, not {target.device}")
-    return rows_to_result(out, PALLAS_MODELS[model].n_params)
+    fit = lm_rows_cuda if _build.on_cuda(target, "the fused LM solve runs") else lm_rows_plain
+    return rows_to_result(fit(cfg, ang, y, w, rows), PALLAS_MODELS[model].n_params)
 
 
 def lm_fit_compacted(

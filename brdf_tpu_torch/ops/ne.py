@@ -55,6 +55,7 @@ import torch
 
 from brdf_tpu_torch.models.brdf import ShadingAngles, ShadingGeometry
 from brdf_tpu_torch.models.normalmap import tangent_basis
+from brdf_tpu_torch.ops import _build
 from brdf_tpu_torch.ops.lanegroup import group_sum
 from brdf_tpu_torch.ops.lm import (
     _DEFAULT_OPTS,
@@ -89,7 +90,9 @@ STEP_PARAMS = (1, 2, 3, 4, 5, JOINT_M)
 STATE_ROWS = ("chi2", "mu", "nu", "iters", "stop", "g_inf")
 SCRATCH_ROWS = ("mu_it", "grad_norm", "pred_reduction", "solver_ok", "small_dp", "grad_conv")
 
-_JOINT_OPTS = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=40)
+# The joint normal-map fit's solver options where the caller gives none
+# (pipeline/fit.py::fit_joint_normalmap and lm_fit_joint_chunked).
+JOINT_OPTS = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=40)
 
 
 def ne_rows_count(m: int, mode: str) -> int:
@@ -174,14 +177,6 @@ def ne_rows_plain(model: str, mode: str, ang, y, w, p_rows) -> torch.Tensor:
     return torch.stack(rows)
 
 
-def _check_cuda(name: str, first: torch.Tensor, *rest: torch.Tensor) -> None:
-    for x in (first, *rest):
-        if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{name} takes contiguous float32 CUDA tensors")
-        if x.device != first.device:
-            raise ValueError(f"{name}'s inputs must lie on one device")
-
-
 def _checked_layout(name: str, kernel: str, m: int, mode: str, v: int) -> int:
     warps = ne_layout(kernel, m, mode, v)
     if not layout_fits(m, mode, warps):
@@ -189,28 +184,13 @@ def _checked_layout(name: str, kernel: str, m: int, mode: str, v: int) -> int:
     return warps
 
 
-def _load_entries(name: str, args: list, occ_args: list):
-    """The kernel's launch and occupancy entries of ``csrc/<name>.cu``."""
-    from brdf_tpu_torch.ops import _build
-
-    lib = _build.load(name)
-    fn, occ = getattr(lib, f"brdf_{name}_rows"), getattr(lib, f"brdf_{name}_occupancy")
-    fn.argtypes, occ.argtypes = args, occ_args
-    fn.restype = occ.restype = ctypes.c_int
-    return fn, occ
-
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-@functools.lru_cache(maxsize=None)
-def _ne_entry():
-    return _load_entries("ne", [_I] * 3 + [_P] * 5 + [_I, _I, _P], [_I] * 4 + [_P])
-
-
-@functools.lru_cache(maxsize=None)
-def _joint_entry():
-    return _load_entries("joint_ne", [_I] * 3 + [_P] * 6 + [_I, _I, _P], [_I] * 3 + [_P])
+_P, _I, _F = _build.P, _build.I, _build.F
+_NE = _build.Entry("K6", "ne", "brdf_ne_rows", (_I,) * 3 + (_P,) * 5 + (_I, _I, _P))
+_JOINT = _build.Entry("K7", "joint_ne", "brdf_joint_ne_rows", (_I,) * 3 + (_P,) * 6 + (_I, _I, _P))
+_OCCUPANCY = {
+    "ne": _build.Entry("K6", "ne", "brdf_ne_occupancy", (_I,) * 4 + (_P,)),
+    "joint_ne": _build.Entry("K7", "joint_ne", "brdf_joint_ne_occupancy", (_I,) * 3 + (_P,)),
+}
 
 
 def occupancy(kernel: str, model: str, mode: str, warps: int, weighted: bool = True) -> dict:
@@ -218,12 +198,8 @@ def occupancy(kernel: str, model: str, mode: str, warps: int, weighted: bool = T
     lobe) gets at a split of ``warps`` on the current card: resident blocks
     and warps an SM, registers and local-memory bytes a thread, threads a
     block (the CUDA runtime's own figures)."""
-    res = (ctypes.c_int * 4)()
-    args = (SHADING_KERNELS[model].lobe_id, MODES[mode], *((int(weighted),) if kernel == "ne" else ()),
-            warps, res)
-    err = (_ne_entry if kernel == "ne" else _joint_entry)()[1](*args)
-    if err != 0:
-        raise RuntimeError(f"{kernel} occupancy query failed with cudaError {err}")
+    res = _build.query(_OCCUPANCY[kernel], 4, SHADING_KERNELS[model].lobe_id, MODES[mode],
+                       *((int(weighted),) if kernel == "ne" else ()), warps)
     return dict(warps=warps, blocks_per_sm=res[0], warps_per_sm=res[0] * res[3] // 32,
                 registers=res[1], local_bytes=res[2], threads_per_block=res[3])
 
@@ -235,7 +211,7 @@ def ne_rows_cuda(model: str, mode: str, ang, y, w, p_rows) -> torch.Tensor:
     m = spec.n_params
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; choose from {tuple(MODES)}")
-    _check_cuda("K6", ang, y, p_rows, *(() if w is None else (w,)))
+    _build.check_operands("K6", ang, y, p_rows, *(() if w is None else (w,)))
     if ang.ndim != 3 or ang.shape[0] != len(spec.angle_names):
         raise ValueError(f"K6: {model} reads {len(spec.angle_names)} angle channels (A, V, T), "
                          f"got {tuple(ang.shape)}")
@@ -251,26 +227,19 @@ def ne_rows_cuda(model: str, mode: str, ang, y, w, p_rows) -> torch.Tensor:
     if v == 0:
         return out.zero_()
     warps = _checked_layout("K6", "ne", m, mode, v)
-    stream = torch.cuda.current_stream(ang.device).cuda_stream
-    with torch.cuda.device(ang.device):
-        err = _ne_entry()[0](spec.lobe_id, MODES[mode], warps, ang.data_ptr(), y.data_ptr(),
-                             None if w is None else w.data_ptr(), p_rows.data_ptr(),
-                             out.data_ptr(), t, v, stream)
-    if err != 0:
-        raise RuntimeError(f"K6 (csrc/ne.cu) launch failed with cudaError {err}")
+    _build.launch(_NE, ang.device, spec.lobe_id, MODES[mode], warps, ang.data_ptr(), y.data_ptr(),
+                  None if w is None else w.data_ptr(), p_rows.data_ptr(), out.data_ptr(), t, v)
     LAUNCHES["ne"] += 1
     return out
 
 
 def ne_rows(model: str, mode: str, ang, y, w, p_rows) -> torch.Tensor:
     """K6 for CUDA tensors, its plain version for CPU tensors."""
-    if ang.is_cuda:
+    if _build.on_cuda(ang, "the normal-equation kernels run"):
         return ne_rows_cuda(model, mode, ang, y, w, p_rows)
-    if ang.device.type == "cpu":
-        if mode not in MODES:
-            raise ValueError(f"unknown mode {mode!r}; choose from {tuple(MODES)}")
-        return ne_rows_plain(model, mode, ang, y, w, p_rows)
-    raise ValueError(f"the normal-equation kernels run on cuda or cpu, not {ang.device}")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; choose from {tuple(MODES)}")
+    return ne_rows_plain(model, mode, ang, y, w, p_rows)
 
 
 # ---------------------------------------------------------------------------
@@ -383,7 +352,7 @@ def _check_joint(base_model: str, mode: str) -> None:
 def joint_ne_rows_cuda(base_model: str, mode: str, lv, y, w, p_rows, frame) -> torch.Tensor:
     """Launch K7 on views-major CUDA inputs → the ``(R, T)`` rows."""
     _check_joint(base_model, mode)
-    _check_cuda("K7", lv, y, w, p_rows, frame)
+    _build.check_operands("K7", lv, y, w, p_rows, frame)
     if lv.ndim != 3 or lv.shape[0] != 6:
         raise ValueError(f"K7: lv is (6, V, T), got {tuple(lv.shape)}")
     _, v, t = lv.shape
@@ -399,25 +368,19 @@ def joint_ne_rows_cuda(base_model: str, mode: str, lv, y, w, p_rows, frame) -> t
     if v == 0:
         return out.zero_()
     warps = _checked_layout("K7", "joint_ne", JOINT_M, mode, v)
-    stream = torch.cuda.current_stream(lv.device).cuda_stream
-    with torch.cuda.device(lv.device):
-        err = _joint_entry()[0](
-            SHADING_KERNELS[base_model].lobe_id, MODES[mode], warps, lv.data_ptr(), y.data_ptr(), w.data_ptr(), p_rows.data_ptr(), frame.data_ptr(),
-            out.data_ptr(), t, v, stream)
-    if err != 0:
-        raise RuntimeError(f"K7 (csrc/joint_ne.cu) launch failed with cudaError {err}")
+    _build.launch(_JOINT, lv.device, SHADING_KERNELS[base_model].lobe_id, MODES[mode], warps,
+                  lv.data_ptr(), y.data_ptr(), w.data_ptr(), p_rows.data_ptr(), frame.data_ptr(),
+                  out.data_ptr(), t, v)
     LAUNCHES["joint_ne"] += 1
     return out
 
 
 def joint_ne_rows(base_model: str, mode: str, lv, y, w, p_rows, frame) -> torch.Tensor:
     """K7 for CUDA tensors, its plain version for CPU tensors."""
-    if lv.is_cuda:
+    if _build.on_cuda(lv, "the normal-equation kernels run"):
         return joint_ne_rows_cuda(base_model, mode, lv, y, w, p_rows, frame)
-    if lv.device.type == "cpu":
-        _check_joint(base_model, mode)
-        return joint_ne_rows_plain(base_model, mode, lv, y, w, p_rows, frame)
-    raise ValueError(f"the normal-equation kernels run on cuda or cpu, not {lv.device}")
+    _check_joint(base_model, mode)
+    return joint_ne_rows_plain(base_model, mode, lv, y, w, p_rows, frame)
 
 
 # ---------------------------------------------------------------------------
@@ -540,17 +503,9 @@ def lm_step_accept_plain(cfg: LMConfig, chi2_new, scratch, pn, p, state, active)
     active.copy_(still.sum(dtype=torch.int32).reshape(1))
 
 
-@functools.lru_cache(maxsize=None)
-def _step_entries():
-    """The launch entries of ``csrc/lm_step.cu``: propose, accept."""
-    from brdf_tpu_torch.ops import _build
-
-    lib = _build.load("lm_step")
-    entries = (lib.brdf_lm_step_propose, lib.brdf_lm_step_accept)
-    for fn in entries:
-        fn.argtypes = [_I] + [_P] * 6 + [_I, _P, _P] + [ctypes.c_float] * 6 + [_I, _P]
-        fn.restype = ctypes.c_int
-    return entries
+_STEP_ARGS = (_I,) + (_P,) * 6 + (_I, _P, _P) + (_F,) * 6 + (_I, _P)
+_PROPOSE = _build.Entry("lm_step_propose", "lm_step", "brdf_lm_step_propose", _STEP_ARGS)
+_ACCEPT = _build.Entry("lm_step_accept", "lm_step", "brdf_lm_step_accept", _STEP_ARGS)
 
 
 def _check_count(name: str, active: torch.Tensor, device) -> None:
@@ -573,10 +528,11 @@ def _step_dims(name: str, cfg: LMConfig, p) -> tuple[int, int]:
     return m, t
 
 
-def _step_cuda(which: int, name: str, cfg: LMConfig, active, operands) -> None:
-    """Check and launch step kernel ``which`` (0 propose, 1 accept) on the
-    ``(tensor, shape)`` pairs ``operands``, in the entry's order."""
-    _check_cuda(name, *(x for x, _ in operands))
+def _step_cuda(entry: _build.Entry, cfg: LMConfig, active, operands) -> None:
+    """Check and launch the step kernel ``entry`` on the ``(tensor, shape)``
+    pairs ``operands``, in the entry's order."""
+    name = entry.kernel
+    _build.check_operands(name, *(x for x, _ in operands))
     device = operands[0][0].device
     _check_count(name, active, device)
     if any(tuple(x.shape) != shape for x, shape in operands):
@@ -584,18 +540,14 @@ def _step_cuda(which: int, name: str, cfg: LMConfig, active, operands) -> None:
                          f"want {[shape for _, shape in operands]}")
     m, t = len(cfg.lower), operands[0][1][-1]
     if t == 0:
-        if which == 0:
+        if entry is _PROPOSE:
             active.zero_()
         return
     lower = (ctypes.c_float * m)(*cfg.lower)
     upper = (ctypes.c_float * m)(*cfg.upper)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = _step_entries()[which](
-            m, *(x.data_ptr() for x, _ in operands), active.data_ptr(), t, lower, upper, cfg.eps1,
-            cfg.eps2_sq, cfg.eps3, cfg.mu_max, cfg.half_mu_max, cfg.tau, cfg.itmax, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} (csrc/lm_step.cu) launch failed with cudaError {err}")
+    _build.launch(entry, device, m, *(x.data_ptr() for x, _ in operands), active.data_ptr(), t,
+                  lower, upper, cfg.eps1, cfg.eps2_sq, cfg.eps3, cfg.mu_max, cfg.half_mu_max,
+                  cfg.tau, cfg.itmax)
     LAUNCHES["lm_step"] += 1
 
 
@@ -603,7 +555,7 @@ def lm_step_propose_cuda(cfg: LMConfig, full, p, state, pn, scratch, active) -> 
     """Launch ``lm_step_propose_kernel`` on CUDA tensors: the arguments of
     :func:`lm_step_propose_plain`."""
     m, t = _step_dims("lm_step_propose", cfg, p)
-    _step_cuda(0, "lm_step_propose", cfg, active, (
+    _step_cuda(_PROPOSE, cfg, active, (
         (full, (ne_rows_count(m, "full"), t)), (p, (m, t)), (state, (len(STATE_ROWS), t)),
         (pn, (m, t)), (scratch, (len(SCRATCH_ROWS), t))))
 
@@ -612,27 +564,23 @@ def lm_step_accept_cuda(cfg: LMConfig, chi2_new, scratch, pn, p, state, active) 
     """Launch ``lm_step_accept_kernel`` on CUDA tensors: the arguments of
     :func:`lm_step_accept_plain`."""
     m, t = _step_dims("lm_step_accept", cfg, p)
-    _step_cuda(1, "lm_step_accept", cfg, active, (
+    _step_cuda(_ACCEPT, cfg, active, (
         (chi2_new, (t,)), (scratch, (len(SCRATCH_ROWS), t)), (pn, (m, t)), (p, (m, t)),
         (state, (len(STATE_ROWS), t))))
 
 
 def lm_step_propose(cfg: LMConfig, full, p, state, pn, scratch, active) -> None:
     """The step kernel for CUDA tensors, its plain version for CPU tensors."""
-    if p.is_cuda:
-        return lm_step_propose_cuda(cfg, full, p, state, pn, scratch, active)
-    if p.device.type == "cpu":
-        return lm_step_propose_plain(cfg, full, p, state, pn, scratch, active)
-    raise ValueError(f"the LM step kernels run on cuda or cpu, not {p.device}")
+    step = (lm_step_propose_cuda if _build.on_cuda(p, "the LM step kernels run")
+            else lm_step_propose_plain)
+    step(cfg, full, p, state, pn, scratch, active)
 
 
 def lm_step_accept(cfg: LMConfig, chi2_new, scratch, pn, p, state, active) -> None:
     """The step kernel for CUDA tensors, its plain version for CPU tensors."""
-    if p.is_cuda:
-        return lm_step_accept_cuda(cfg, chi2_new, scratch, pn, p, state, active)
-    if p.device.type == "cpu":
-        return lm_step_accept_plain(cfg, chi2_new, scratch, pn, p, state, active)
-    raise ValueError(f"the LM step kernels run on cuda or cpu, not {p.device}")
+    step = (lm_step_accept_cuda if _build.on_cuda(p, "the LM step kernels run")
+            else lm_step_accept_plain)
+    step(cfg, chi2_new, scratch, pn, p, state, active)
 
 
 def chunked_lm_loop(cfg: LMConfig, rows_fn, p_init: torch.Tensor, warm=None) -> PallasFitResult:
@@ -819,7 +767,7 @@ def lm_fit_joint_chunked(
     target: torch.Tensor,              # (T, V, 3)
     p0: torch.Tensor,                  # (T, 9)
     weights: torch.Tensor | None = None,   # (T, V) or per channel (T, V, 3)
-    opts: LMOptions = _JOINT_OPTS,
+    opts: LMOptions = JOINT_OPTS,
     lower: tuple = (),
     upper: tuple = (),
     axis_name: str | None = None,

@@ -40,8 +40,6 @@ lane for lane only because the two round alike.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -49,6 +47,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from brdf_tpu_torch.models.brdf import ShadingAngles
+from brdf_tpu_torch.ops import _build
 
 _EPS = 1e-12
 _INV_PI = 1.0 / math.pi
@@ -474,15 +473,9 @@ def shading_eval_plain(model: str, ang: torch.Tensor, params: torch.Tensor):
     return i_val, torch.stack(d_p), torch.stack(d_a)
 
 
-@functools.lru_cache(maxsize=None)
-def _entry():
-    from brdf_tpu_torch.ops import _build
-
-    fn = _build.load("lobes_eval").brdf_lobes_eval
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, p, p, p, p, p, i, i, p]
-    fn.restype = ctypes.c_int
-    return fn
+_P, _I = _build.P, _build.I
+_LOBES_EVAL = _build.Entry("the lobe kernel", "lobes_eval", "brdf_lobes_eval",
+                           (_I, _P, _P, _P, _P, _P, _I, _I, _P))
 
 
 def shading_eval_cuda(model: str, ang: torch.Tensor, params: torch.Tensor):
@@ -490,11 +483,7 @@ def shading_eval_cuda(model: str, ang: torch.Tensor, params: torch.Tensor):
     once per (view, texel), all three outputs written out."""
     global LAUNCHES
     spec = SHADING_KERNELS[model]
-    for x in (ang, params):
-        if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError("the lobe kernel takes contiguous float32 CUDA tensors")
-        if x.device != ang.device:
-            raise ValueError("the lobe kernel's inputs must lie on one device")
+    _build.check_operands("the lobe kernel", ang, params)
     _, v, t = ang.shape
     if v * t >= 2**31:
         raise ValueError(f"the lobe kernel indexes with 32-bit ints; V·T={v * t} is too large")
@@ -503,11 +492,8 @@ def shading_eval_cuda(model: str, ang: torch.Tensor, params: torch.Tensor):
     d_a = torch.empty_like(ang)
     if v * t == 0:
         return i_val, d_p, d_a
-    stream = torch.cuda.current_stream(ang.device).cuda_stream
-    err = _entry()(spec.lobe_id, ang.data_ptr(), params.data_ptr(), i_val.data_ptr(),
-                   d_p.data_ptr(), d_a.data_ptr(), t, v, stream)
-    if err != 0:
-        raise RuntimeError(f"csrc/lobes_eval.cu launch failed with cudaError {err}")
+    _build.launch(_LOBES_EVAL, ang.device, spec.lobe_id, ang.data_ptr(), params.data_ptr(),
+                  i_val.data_ptr(), d_p.data_ptr(), d_a.data_ptr(), t, v)
     LAUNCHES += 1
     return i_val, d_p, d_a
 
@@ -523,11 +509,9 @@ def shading_eval(model: str, ang: torch.Tensor, params: torch.Tensor):
     if params.shape != (spec.n_params, ang.shape[2]):
         raise ValueError(f"{model} takes {spec.n_params} parameter rows (m, T), "
                          f"got {tuple(params.shape)}")
-    if ang.is_cuda:
+    if _build.on_cuda(ang, "the lobe library runs"):
         return shading_eval_cuda(model, ang, params)
-    if ang.device.type == "cpu":
-        return shading_eval_plain(model, ang, params)
-    raise ValueError(f"the lobe library runs on cuda or cpu, not {ang.device}")
+    return shading_eval_plain(model, ang, params)
 
 
 # ---------------------------------------------------------------------------
@@ -569,32 +553,21 @@ def shade_bwd_angles_plain(model: str, ang: torch.Tensor, params: torch.Tensor,
     return torch.stack([d * ct for d in d_a])
 
 
-@functools.lru_cache(maxsize=None)
-def _shade_entries():
-    from brdf_tpu_torch.ops import _build
-
-    lib = _build.load("shade")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.brdf_shade_fwd.argtypes = [i, p, p, p, i, i, p]
-    lib.brdf_shade_bwd_params.argtypes = [i, p, p, p, p, i, i, p]
-    lib.brdf_shade_bwd_angles.argtypes = [i, p, p, p, p, i, i, p]
-    lib.brdf_shade_bwd_params_occupancy.argtypes = [i, p]
-    entries = {"fwd": lib.brdf_shade_fwd, "bwd_params": lib.brdf_shade_bwd_params,
-               "bwd_angles": lib.brdf_shade_bwd_angles,
-               "bwd_params_occupancy": lib.brdf_shade_bwd_params_occupancy}
-    for fn in entries.values():
-        fn.restype = ctypes.c_int
-    return entries
+_SHADE = {
+    "fwd": _build.Entry("K2", "shade", "brdf_shade_fwd", (_I, _P, _P, _P, _I, _I, _P)),
+    "bwd_params": _build.Entry("K3", "shade", "brdf_shade_bwd_params",
+                               (_I, _P, _P, _P, _P, _I, _I, _P)),
+    "bwd_angles": _build.Entry("K4", "shade", "brdf_shade_bwd_angles",
+                               (_I, _P, _P, _P, _P, _I, _I, _P)),
+}
+_K3_OCCUPANCY = _build.Entry("K3", "shade", "brdf_shade_bwd_params_occupancy", (_I, _P))
 
 
 def shade_bwd_params_occupancy(model: str) -> dict:
     """What K3 gets for ``model`` on the current card: resident blocks and
     warps an SM, registers and local-memory bytes a thread (the CUDA
     runtime's own figures)."""
-    res = (ctypes.c_int * 4)()
-    err = _shade_entries()["bwd_params_occupancy"](SHADING_KERNELS[model].lobe_id, res)
-    if err != 0:
-        raise RuntimeError(f"shade_bwd_params occupancy query failed with cudaError {err}")
+    res = _build.query(_K3_OCCUPANCY, 4, SHADING_KERNELS[model].lobe_id)
     return dict(blocks_per_sm=res[0], warps_per_sm=res[0] * res[3] // 32, registers=res[1],
                 local_bytes=res[2])
 
@@ -603,11 +576,8 @@ def _shade_launch(kernel: str, model: str, out_shape, ang: torch.Tensor, *rest: 
     """Check the inputs, allocate the output and launch one kernel of
     ``csrc/shade.cu`` on the current stream."""
     spec = SHADING_KERNELS[model]
-    for x in (ang, *rest):
-        if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError("the shading kernels take contiguous float32 CUDA tensors")
-        if x.device != ang.device:
-            raise ValueError("the shading kernels' inputs must lie on one device")
+    entry = _SHADE[kernel]
+    _build.check_operands(entry.kernel, ang, *rest)
     _, v, t = ang.shape
     if v * t >= 2**31:
         raise ValueError(f"one shading launch covers fewer than 2^31 (view, texel) pairs, "
@@ -615,12 +585,8 @@ def _shade_launch(kernel: str, model: str, out_shape, ang: torch.Tensor, *rest: 
     out = torch.empty(out_shape, dtype=torch.float32, device=ang.device)
     if v * t == 0:
         return out.zero_()
-    stream = torch.cuda.current_stream(ang.device).cuda_stream
-    with torch.cuda.device(ang.device):
-        err = _shade_entries()[kernel](spec.lobe_id, ang.data_ptr(), *(x.data_ptr() for x in rest),
-                                       out.data_ptr(), t, v, stream)
-    if err != 0:
-        raise RuntimeError(f"csrc/shade.cu: shade_{kernel} launch failed with cudaError {err}")
+    _build.launch(entry, ang.device, spec.lobe_id, ang.data_ptr(), *(x.data_ptr() for x in rest),
+                  out.data_ptr(), t, v)
     SHADE_LAUNCHES[kernel] += 1
     return out
 
@@ -649,13 +615,11 @@ _SHADE_PLAIN = {"fwd": shade_fwd_plain, "bwd_params": shade_bwd_params_plain,
 def _shade_run(kernel: str, model: str, ang: torch.Tensor, *rest: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel for CUDA tensors, its plain version for CPU tensors;
     neither stands in for the other."""
-    if ang.is_cuda:
+    if _build.on_cuda(ang, "the shading kernels run"):
         cuda = {"fwd": shade_fwd_cuda, "bwd_params": shade_bwd_params_cuda,
                 "bwd_angles": shade_bwd_angles_cuda}[kernel]
         return cuda(model, ang, *rest)
-    if ang.device.type == "cpu":
-        return _SHADE_PLAIN[kernel](model, ang, *rest)
-    raise ValueError(f"the shading kernels run on cuda or cpu, not {ang.device}")
+    return _SHADE_PLAIN[kernel](model, ang, *rest)
 
 
 class _ShadeVT(torch.autograd.Function):

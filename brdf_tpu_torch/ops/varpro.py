@@ -35,7 +35,6 @@ float32 chaos.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -238,20 +237,11 @@ def kernel_layout(n_angles: int, v: int) -> tuple[int, int, int]:
     return lane_layout(n_angles, v)
 
 
-@functools.lru_cache(maxsize=None)
-def _entry():
-    lib = _build.load("varpro")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.brdf_varpro_fit
-    fn.argtypes = [
-        i, p, p, p, p, p, i, i, i, i, p, p, i,
-        f, f, f, f, i, f, f, f, f, f, f, f, i, p,
-    ]
-    fn.restype = ctypes.c_int
-    occ = lib.brdf_varpro_occupancy
-    occ.argtypes = [i, i, i, p]
-    occ.restype = ctypes.c_int
-    return fn, occ
+_P, _I, _F = _build.P, _build.I, _build.F
+_FIT = _build.Entry("K1", "varpro", "brdf_varpro_fit", (
+    _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I,
+    _F, _F, _F, _F, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P))
+_OCCUPANCY = _build.Entry("K1", "varpro", "brdf_varpro_occupancy", (_I, _I, _I, _P))
 
 
 def occupancy(model: str, v: int) -> dict:
@@ -260,10 +250,7 @@ def occupancy(model: str, v: int) -> dict:
     local-memory bytes a thread (the CUDA runtime's own figures)."""
     spec = SHADING_KERNELS[model]
     lanes, vpl, block_t = kernel_layout(len(spec.angle_names), v)
-    res = (ctypes.c_int * 4)()
-    err = _entry()[1](spec.lobe_id, vpl, lanes, res)
-    if err != 0:
-        raise RuntimeError(f"K1 occupancy query failed with cudaError {err}")
+    res = _build.query(_OCCUPANCY, 4, spec.lobe_id, vpl, lanes)
     return dict(lanes=lanes, views_per_lane=vpl, block_t=block_t, blocks_per_sm=res[0],
                 warps_per_sm=res[0] * res[3] // 32, registers=res[1], local_bytes=res[2])
 
@@ -272,12 +259,7 @@ def varpro_rows_cuda(cfg: VarProConfig, ang, y, w, sig0, iters: int) -> torch.Te
     """Launch K1 on ``(V, T)`` CUDA inputs → the ``(8, T)`` output rows."""
     global LAUNCHES
     a_count, v, t = ang.shape
-    tensors = [ang, y, w] + ([] if sig0 is None else [sig0])
-    for x in tensors:
-        if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError("K1 takes contiguous float32 CUDA tensors")
-        if x.device != ang.device:
-            raise ValueError("K1's inputs must lie on one device")
+    _build.check_operands("K1", ang, y, w, *(() if sig0 is None else (sig0,)))
     spec = SHADING_KERNELS[cfg.model]
     if a_count != len(spec.angle_names) or y.shape != (v, t) or w.shape != (v, t):
         raise ValueError(f"K1 shapes: ang {tuple(ang.shape)}, y {tuple(y.shape)}, w {tuple(w.shape)}")
@@ -294,16 +276,13 @@ def varpro_rows_cuda(cfg: VarProConfig, ang, y, w, sig0, iters: int) -> torch.Te
     n = len(cfg.grid_sig)
     grid_sig = (ctypes.c_float * n)(*cfg.grid_sig)
     grid_t = (ctypes.c_float * n)(*cfg.grid_t)
-    stream = torch.cuda.current_stream(ang.device).cuda_stream
-    err = _entry()[0](
-        spec.lobe_id, ang.data_ptr(), y.data_ptr(), w.data_ptr(),
+    _build.launch(
+        _FIT, ang.device, spec.lobe_id, ang.data_ptr(), y.data_ptr(), w.data_ptr(),
         None if sig0 is None else sig0.data_ptr(), out.data_ptr(),
         t, v, lanes, vpl, grid_sig, grid_t, n,
         *cfg.box, int(cfg.use_log), cfg.s_lo, cfg.s_hi, cfg.p0_lo, cfg.p0_hi,
-        span, 0.25 * span, 1e-6 * span, int(iters), stream,
+        span, 0.25 * span, 1e-6 * span, int(iters),
     )
-    if err != 0:
-        raise RuntimeError(f"K1 (csrc/varpro.cu) launch failed with cudaError {err}")
     LAUNCHES += 1
     return out
 
@@ -333,10 +312,6 @@ def varpro_fit_fused(
     CPU tensors. Same public contract as ``varpro_fit_pallas``."""
     cfg = config(model, lower, upper, grid_points)
     ang, y, w, sig0 = stack_inputs(model, angles, target, weights, p0)
-    if target.is_cuda:
-        out = varpro_rows_cuda(cfg, ang, y, w, sig0, iters)
-    elif target.device.type == "cpu":
-        out = varpro_rows_plain(cfg, ang, y, w, sig0, iters)
-    else:
-        raise ValueError(f"the fused VarPro solve runs on cuda or cpu, not {target.device}")
-    return rows_to_result(out)
+    rows = (varpro_rows_cuda if _build.on_cuda(target, "the fused VarPro solve runs")
+            else varpro_rows_plain)
+    return rows_to_result(rows(cfg, ang, y, w, sig0, iters))

@@ -37,7 +37,6 @@ the tests hold the plain version to it at the solve's float32 chaos.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -252,17 +251,11 @@ def kernel_layout(n_angles: int, d: int, v: int) -> tuple[int, int, int]:
     return lane_layout(n_angles, d, v)
 
 
-@functools.lru_cache(maxsize=None)
-def _entry():
-    lib = _build.load("varpro_nd")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.brdf_varpro_nd_fit
-    fn.argtypes = [i, p, p, p, p, p, i, i, i, i, p, i, i, f, f, f, f, p, p, f, f, f, i, p]
-    fn.restype = ctypes.c_int
-    occ = lib.brdf_varpro_nd_occupancy
-    occ.argtypes = [i, i, i, i, p]
-    occ.restype = ctypes.c_int
-    return fn, occ
+_P, _I, _F = _build.P, _build.I, _build.F
+_FIT = _build.Entry("K8", "varpro_nd", "brdf_varpro_nd_fit", (
+    _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _F, _F, _F, _F, _P, _P, _F, _F, _F, _I,
+    _P))
+_OCCUPANCY = _build.Entry("K8", "varpro_nd", "brdf_varpro_nd_occupancy", (_I, _I, _I, _I, _P))
 
 
 def occupancy(model: str, v: int) -> dict:
@@ -272,10 +265,7 @@ def occupancy(model: str, v: int) -> dict:
     spec = SHADING_KERNELS[model]
     d = spec.n_params - 2
     lanes, vpl, block_t = kernel_layout(len(spec.angle_names), d, v)
-    res = (ctypes.c_int * 4)()
-    err = _entry()[1](spec.lobe_id, d, vpl, lanes, res)
-    if err != 0:
-        raise RuntimeError(f"K8 occupancy query failed with cudaError {err}")
+    res = _build.query(_OCCUPANCY, 4, spec.lobe_id, d, vpl, lanes)
     return dict(lanes=lanes, views_per_lane=vpl, block_t=block_t, blocks_per_sm=res[0],
                 warps_per_sm=res[0] * res[3] // 32, registers=res[1], local_bytes=res[2])
 
@@ -284,12 +274,7 @@ def varpro_nd_rows_cuda(cfg: VarProNDConfig, ang, y, w, p0_rows, iters: int) -> 
     """Launch K8 on ``(V, T)`` CUDA inputs → the ``(16, T)`` output rows."""
     global LAUNCHES
     a_count, v, t = ang.shape
-    tensors = [ang, y, w] + ([] if p0_rows is None else [p0_rows])
-    for x in tensors:
-        if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError("K8 takes contiguous float32 CUDA tensors")
-        if x.device != ang.device:
-            raise ValueError("K8's inputs must lie on one device")
+    _build.check_operands("K8", ang, y, w, *(() if p0_rows is None else (p0_rows,)))
     spec = SHADING_KERNELS[cfg.model]
     if a_count != len(spec.angle_names) or y.shape != (v, t) or w.shape != (v, t):
         raise ValueError(f"K8 shapes: ang {tuple(ang.shape)}, y {tuple(y.shape)}, w {tuple(w.shape)}")
@@ -306,15 +291,12 @@ def varpro_nd_rows_cuda(cfg: VarProNDConfig, ang, y, w, p0_rows, iters: int) -> 
     grid = (ctypes.c_float * (n * cfg.d))(*(x for row in cfg.grid for x in row))
     lo_s = (ctypes.c_float * cfg.d)(*cfg.lo_s)
     hi_s = (ctypes.c_float * cfg.d)(*cfg.hi_s)
-    stream = torch.cuda.current_stream(ang.device).cuda_stream
-    err = _entry()[0](
-        spec.lobe_id, ang.data_ptr(), y.data_ptr(), w.data_ptr(),
+    _build.launch(
+        _FIT, ang.device, spec.lobe_id, ang.data_ptr(), y.data_ptr(), w.data_ptr(),
         None if p0_rows is None else p0_rows.data_ptr(), out.data_ptr(),
         t, v, lanes, vpl, grid, n, cfg.d, *cfg.box, lo_s, hi_s,
-        cfg.span, 0.25 * cfg.span, 1e-6 * cfg.span, int(iters), stream,
+        cfg.span, 0.25 * cfg.span, 1e-6 * cfg.span, int(iters),
     )
-    if err != 0:
-        raise RuntimeError(f"K8 (csrc/varpro_nd.cu) launch failed with cudaError {err}")
     LAUNCHES += 1
     return out
 
@@ -354,13 +336,9 @@ def varpro_fit_fused_nd(
     with span("varpro_nd", model=model, lanes=t, views=v, grid=len(cfg.grid), iters=int(iters),
               with_p0=p0 is not None, angles=len(SHADING_KERNELS[model].angle_names)):
         ang, y, w, p0_rows = stack_inputs(model, angles, target, weights, p0)
-        if target.is_cuda:
-            out = varpro_nd_rows_cuda(cfg, ang, y, w, p0_rows, iters)
-        elif target.device.type == "cpu":
-            out = varpro_nd_rows_plain(cfg, ang, y, w, p0_rows, iters)
-        else:
-            raise ValueError(
-                f"the fused d-D VarPro solve runs on cuda or cpu, not {target.device}")
+        rows = (varpro_nd_rows_cuda if _build.on_cuda(target, "the fused d-D VarPro solve runs")
+                else varpro_nd_rows_plain)
+        out = rows(cfg, ang, y, w, p0_rows, iters)
     if profiling.enabled():
         profiling.count("varpro_nd.steps", t * int(iters))
         profiling.count("varpro_nd.accepted", int(out[3 + cfg.d].sum(dtype=torch.float64)))

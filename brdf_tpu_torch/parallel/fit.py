@@ -37,6 +37,12 @@ eager ``levmar_bc``, and VarPro the eager ``solver/varpro.py`` fits, all
 with ``axis_name="view"``; the grid init and the robust scale see every
 view through the same sums. After each sum the replicas of a view group
 hold the same bits, so they take the same path through every loop.
+
+Every fit of ``pipeline/fit.py`` runs by the rules written once here: the
+engine rule (:func:`_resolve_engine`), the IRLS rounds (:func:`irls`), the
+mapping of a kernel tier's or a VarPro tier's result onto the LM result
+(:func:`lm_result`, :func:`varpro_result`) and the per-texel fit's default
+options (:data:`FIT_OPTS`).
 """
 
 from __future__ import annotations
@@ -64,24 +70,63 @@ from brdf_tpu_torch.solver.varpro import (
 from brdf_tpu_torch.utils.profiling import span
 
 ENGINES = ("auto", "pallas", "xla", "varpro")
+# The per-texel fit's solver options where the caller gives none; the joint
+# fit's are ops/ne.py::JOINT_OPTS, its kernel tier's default.
+FIT_OPTS = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=60)
 
 
-def _resolve_engine(engine: str, device_type: str, model: str) -> str:
-    """``"auto"`` keys off the device the fit runs on: the fused LM tier on
-    CUDA for a kernel lobe, the eager tier elsewhere."""
+def _resolve_engine(engine: str, device_type: str, kernel_tier: bool) -> str:
+    """``engine`` checked against :data:`ENGINES`. ``"auto"`` keys off the
+    device the fit runs on: ``"pallas"`` on CUDA where a kernel tier takes
+    the fit (``kernel_tier``), else ``"xla"``."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
     if engine != "auto":
         return engine
-    return "pallas" if device_type == "cuda" and model in PALLAS_MODELS else "xla"
+    return "pallas" if device_type == "cuda" and kernel_tier else "xla"
 
 
-def _varpro_result(r, k) -> LMResult:
-    """A VarPro result as an LM result: every iteration evaluates once
-    whether accepted or not, so the work counters report the fixed schedule
-    (k+1 evaluations, k closed-form solves)."""
+def irls(first, reweight, refit, rounds: int):
+    """Round 0 (``first()``), then ``rounds`` IRLS rounds: round ``i`` takes
+    its weights from round ``i − 1``'s result ``r`` (``reweight(r)``) and
+    refits under them (``refit(w, r)``). Each round's solve is a
+    ``fit.solve`` span and each reweighting a ``fit.reweight`` span, both
+    carrying the round."""
+    with span("fit.solve", round=0):
+        res = first()
+    for rnd in range(1, rounds + 1):
+        with span("fit.reweight", round=rnd):
+            w = reweight(res)
+        with span("fit.solve", round=rnd):
+            res = refit(w, res)
+        del w       # freed before the next round's weights are made
+    return res
+
+
+def lm_result(r) -> LMResult:
+    """A kernel tier's result (``ops/lm.py::PallasFitResult``) as an LM
+    result: an iteration is one Jacobian pass, one solve and one trial
+    evaluation."""
     z = torch.zeros_like(r.chi2)
-    k_full = torch.full_like(r.iters, k)
+    iters = r.iters.to(torch.int32)
     return LMResult(
-        p=r.p, chi2=r.chi2, chi2_init=z, g_inf=r.g_abs, iters=r.iters, stop=r.stop,
+        p=r.p, chi2=r.chi2, chi2_init=z, g_inf=r.g_inf, iters=iters, stop=r.stop,
+        nfev=(2.0 * r.iters + 1).to(torch.int32), njev=iters, mu=r.mu, nu=r.nu,
+        nlss=iters, constraint_violation=z,
+    )
+
+
+def varpro_result(r, k: int) -> LMResult:
+    """A VarPro result of ``k`` steps (``VarProResult`` or
+    ``JointVarProResult``: p, χ², iterations, stop, gradient) as an LM
+    result: every iteration evaluates once whether accepted or not, so the
+    work counters report the fixed schedule (k+1 evaluations, k
+    closed-form solves)."""
+    p, chi2, iters, stop, grad = r
+    z = torch.zeros_like(chi2)
+    k_full = torch.full_like(iters, k)
+    return LMResult(
+        p=p, chi2=chi2, chi2_init=z, g_inf=grad, iters=iters, stop=stop,
         nfev=k_full + 1, njev=k_full, mu=z, nu=z, nlss=k_full, constraint_violation=z,
     )
 
@@ -95,7 +140,7 @@ def _fit_varpro(model, angles, target, weights, p0, k, lower, upper) -> LMResult
         fused = varpro_fit_fused_nd if model in _SEPARABLE_ND else varpro_fit_fused
         r = fused(model, angles, target, weights=weights, p0=p0, iters=k,
                   lower=lower, upper=upper)
-    return _varpro_result(r, k)
+    return varpro_result(r, k)
 
 
 def _fit_varpro_views(model, angles, target, weights, p0, k, lower, upper) -> LMResult:
@@ -108,30 +153,20 @@ def _fit_varpro_views(model, angles, target, weights, p0, k, lower, upper) -> LM
         r = varpro_fit_nd(model, angles, target, **kw)
     else:
         r = varpro_fit(model, angles, target, **kw)
-    return _varpro_result(r, k)
+    return varpro_result(r, k)
 
 
 def _fit_fused_lm(model, angles, target, weights, p0, warm, opts, lower, upper,
                   axis_name=None) -> LMResult:
     """One LM fit by the hand-written tiers mapped onto the LM result: the
     fused kernel (K5) while it can stage the views and the view axis is not
-    sharded, else the chunked tier (K6), both with the warm state carried.
-    An iteration is one Jacobian pass, one solve and one trial evaluation in
-    either."""
+    sharded, else the chunked tier (K6), both with the warm state carried."""
     warm_f = (warm[0], warm[1], warm[2].to(torch.float32))
     kw = dict(weights=weights, opts=opts._replace(axis_name=None), lower=lower, upper=upper,
               warm=warm_f)
     if axis_name is None and fits_fused(len(PALLAS_MODELS[model].angle_names), target.shape[1]):
-        r = lm_fit_fused(model, angles, target, p0, **kw)
-    else:
-        r = lm_fit_chunked(model, angles, target, p0, axis_name=axis_name, **kw)
-    z = torch.zeros_like(r.chi2)
-    iters = r.iters.to(torch.int32)
-    return LMResult(
-        p=r.p, chi2=r.chi2, chi2_init=z, g_inf=r.g_inf, iters=iters, stop=r.stop,
-        nfev=(2.0 * r.iters + 1).to(torch.int32), njev=iters, mu=r.mu, nu=r.nu,
-        nlss=iters, constraint_violation=z,
-    )
+        return lm_result(lm_fit_fused(model, angles, target, p0, **kw))
+    return lm_result(lm_fit_chunked(model, angles, target, p0, axis_name=axis_name, **kw))
 
 
 def _fit_eager_lm(model, angles, target, weights, p0, warm, opts, lower, upper,
@@ -150,16 +185,14 @@ def _fit_pipeline(model, angles, target, opts, p0, weights, lower, upper, engine
                   robust, robust_iters, dev, view_axis) -> LMResult:
     """The pipeline of :func:`fit_texels` on ``dev``, with the view axis
     sharded over ``view_axis`` of the current mesh when it is not None."""
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
-    engine = _resolve_engine(engine, dev.type, model)
+    engine = _resolve_engine(engine, dev.type, model in PALLAS_MODELS)
     if engine == "varpro" and model not in _SEPARABLE and model not in _SEPARABLE_ND:
         raise ValueError(
             f"the varpro engine supports the separable lobes "
             f"{sorted(_SEPARABLE) + sorted(_SEPARABLE_ND)}, got {model!r}")
     spec = MODELS[model]
     if opts is None:
-        opts = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=60)
+        opts = FIT_OPTS
     lower_t = tuple(float(x) for x in np.ravel(np.asarray(spec.lower if lower is None else lower)))
     upper_t = tuple(float(x) for x in np.ravel(np.asarray(spec.upper if upper is None else upper)))
     angles = ShadingAngles(*(None if a is None else a.to(dev) for a in angles))
@@ -169,30 +202,19 @@ def _fit_pipeline(model, angles, target, opts, p0, weights, lower, upper, engine
         p0 = p0.to(dev)
     rounds = robust_iters if robust is not None else 0
 
-    def irls_weights(res, rnd):
-        with span("fit.reweight", round=rnd):
-            return robust_weights(spec.fn(res.p, angles) - target, weights, kind=robust,
-                                  axis_name=view_axis)
-
-    def irls(first, solve):
-        """Round 0 (``first()``), then the IRLS rounds: round ``i`` reweights
-        by round ``i − 1``'s result ``r`` and refits by ``solve(weights, r)``."""
-        with span("fit.solve", round=0):
-            res = first()
-        for rnd in range(1, rounds + 1):
-            w = irls_weights(res, rnd)
-            with span("fit.solve", round=rnd):
-                res = solve(w, res)
-            del w       # freed before the next round's weights are made
-        return res
+    def reweight(res):
+        return robust_weights(spec.fn(res.p, angles) - target, weights, kind=robust,
+                              axis_name=view_axis)
 
     if engine == "varpro":
         k = min(opts.itmax, 16)
         if view_axis is None:
             return irls(
                 lambda: _fit_varpro(model, angles, target, weights, p0, k, lower_t, upper_t),
+                reweight,
                 lambda w, r: _fit_varpro(model, angles, target, w,
-                                         r.p if p0 is not None else None, k, lower_t, upper_t))
+                                         r.p if p0 is not None else None, k, lower_t, upper_t),
+                rounds)
         # the eager tiers start from the grid init over every view, as the
         # JAX package's do; the Fresnel lobe's keeps its own roughness grid
         own_grid = p0 is None and model == "cook_torrance_fresnel"
@@ -200,8 +222,10 @@ def _fit_pipeline(model, angles, target, opts, p0, weights, lower, upper, engine
             p0 = linear_grid_init(model, angles, target, weights=weights, axis_name=view_axis)
         return irls(
             lambda: _fit_varpro_views(model, angles, target, weights, p0, k, lower_t, upper_t),
+            reweight,
             lambda w, r: _fit_varpro_views(model, angles, target, w, None if own_grid else r.p,
-                                           k, lower_t, upper_t))
+                                           k, lower_t, upper_t),
+            rounds)
 
     fit = _fit_fused_lm if engine == "pallas" else _fit_eager_lm
     t = target.shape[0]
@@ -216,8 +240,10 @@ def _fit_pipeline(model, angles, target, opts, p0, weights, lower, upper, engine
         p0 = linear_grid_init(model, angles, target, weights=weights, axis_name=view_axis)
     return irls(
         lambda: fit(model, angles, target, weights, p0, warm, opts, lower_t, upper_t, view_axis),
+        reweight,
         lambda w, r: fit(model, angles, target, w, r.p, warm0, opts, lower_t, upper_t,
-                         view_axis))
+                         view_axis),
+        rounds)
 
 
 def fit_texels(

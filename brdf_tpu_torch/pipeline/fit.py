@@ -55,8 +55,16 @@ from brdf_tpu_torch.models.normalmap import (
     joint_spec,
 )
 from brdf_tpu_torch.ops.lm import PALLAS_MODELS
-from brdf_tpu_torch.ops.ne import lm_fit_joint_chunked, normal_equations
-from brdf_tpu_torch.parallel.fit import fit_texels, fit_texels_sharded
+from brdf_tpu_torch.ops.ne import JOINT_OPTS, lm_fit_joint_chunked, normal_equations
+from brdf_tpu_torch.parallel.fit import (
+    FIT_OPTS,
+    _resolve_engine,
+    fit_texels,
+    fit_texels_sharded,
+    irls,
+    lm_result,
+    varpro_result,
+)
 from brdf_tpu_torch.parallel.mesh import (
     ALL_AXES,
     DATA_AXIS,
@@ -647,7 +655,7 @@ def fit_per_texel(
             problem = problem._replace(
                 angles=ShadingAngles(*(torch.as_tensor(a) for a in ang_np)))
         if opts is None:
-            opts = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=60)
+            opts = FIT_OPTS
 
         # fold channels into the batch: angles/weights repeat per channel
         with span("fit.upload") as up:
@@ -667,19 +675,22 @@ def fit_per_texel(
         view_axis = VIEW_AXIS if mesh is not None and mesh.view > 1 else None
 
         if checkpointer is not None and chunk_iters > 0:
-            res = _fit_chunked(
-                model, ang_rep, target, dev, opts, w_rep, engine, checkpointer, chunk_iters,
-                resume, lower=lower, upper=upper, mesh=mesh,
-            )
-            if robust is not None:
-                for _ in range(robust_iters):
-                    with use_mesh(mesh):
-                        w_irls = robust_weights(spec.fn(res.p, ang_rep) - target, w_rep,
-                                                kind=robust, axis_name=view_axis)
-                    res = _fit_block(
-                        model, ang_rep, target, dev, mesh, opts=opts, weights=w_irls, p0=res.p,
-                        engine=engine, lower=lower, upper=upper,
-                    )
+            def reweight(r):
+                with use_mesh(mesh):
+                    return robust_weights(spec.fn(r.p, ang_rep) - target, w_rep, kind=robust,
+                                          axis_name=view_axis)
+
+            # the rounds after the checkpointed one refit from the previous
+            # round's parameters, whatever the engine
+            res = irls(
+                lambda: _fit_chunked(
+                    model, ang_rep, target, dev, opts, w_rep, engine, checkpointer, chunk_iters,
+                    resume, lower=lower, upper=upper, mesh=mesh),
+                reweight,
+                lambda w, r: _fit_block(
+                    model, ang_rep, target, dev, mesh, opts=opts, weights=w, p0=r.p,
+                    engine=engine, lower=lower, upper=upper),
+                robust_iters if robust is not None else 0)
         else:
             res = _fit_block(
                 model, ang_rep, target, dev, mesh, opts=opts, weights=w_rep, engine=engine,
@@ -690,9 +701,6 @@ def fit_per_texel(
         params = res.p.reshape(t, c, spec.n_params)
         result = LMResult(*(x.reshape(t, c) if x.ndim == 1 else x for x in res))
     return FitReport(params=params, face_ids=problem.face_ids, result=result, model=model)
-
-
-JOINT_ENGINES = ("auto", "pallas", "xla", "varpro")
 
 
 def _as_tensor(x, dev, dtype=None) -> torch.Tensor:
@@ -718,23 +726,11 @@ def _joint_solve(base_model, spec: JointSpec, opts, max_tilt, engine, p0, geomet
         k = min(opts.itmax, 12)
         r, _ = varpro_fit_joint(base_model, geometry, intensity, weights=weights,
                                 channel_params=chan_p, iters=k, max_tilt=max_tilt)
-        z = torch.zeros_like(r.chi2)
-        # fixed-schedule work counters (k+1 evaluations, k solves)
-        k_full = torch.full_like(r.iters, k)
-        return LMResult(
-            p=r.p, chi2=r.chi2, chi2_init=z, g_inf=r.g_inf, iters=r.iters, stop=r.stop,
-            nfev=k_full + 1, njev=k_full, mu=z, nu=z, nlss=k_full, constraint_violation=z,
-        )
+        return varpro_result(r, k)
     if engine == "pallas":
-        r = lm_fit_joint_chunked(base_model, geometry, intensity, p0, weights=weights, opts=opts,
-                                 lower=tuple(spec.lower), upper=tuple(spec.upper))
-        z = torch.zeros_like(r.chi2)
-        iters = r.iters.to(torch.int32)
-        return LMResult(
-            p=r.p, chi2=r.chi2, chi2_init=z, g_inf=r.g_inf, iters=iters, stop=r.stop,
-            nfev=(2.0 * r.iters + 1).to(torch.int32), njev=iters, mu=r.mu, nu=r.nu,
-            nlss=iters, constraint_violation=z,
-        )
+        return lm_result(lm_fit_joint_chunked(base_model, geometry, intensity, p0, weights=weights,
+                                              opts=opts, lower=tuple(spec.lower),
+                                              upper=tuple(spec.upper)))
     return levmar_bc(joint_residual(spec), p0, spec.lower, spec.upper,
                      data=(geometry, intensity, weights), opts=opts)
 
@@ -786,17 +782,14 @@ def fit_joint_normalmap(
     """
     t, v, c = problem.intensity.shape
     with span("fit", texels=t, views=v, channels=c, engine=engine) as root:
-        if engine not in JOINT_ENGINES:
-            raise ValueError(f"unknown engine {engine!r}; choose from {JOINT_ENGINES}")
         if problem.geometry is None:
             raise ValueError("joint fit requires build_face_problem(with_geometry=True)")
         dev = _fit_device(device, mesh)
         spec = joint_spec(base_model, max_tilt=max_tilt)
         if opts is None:
-            opts = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=40)
-        if engine == "auto":
-            engine = ("pallas" if dev.type == "cuda" and base_model in PALLAS_MODELS
-                      and spec.n_shape == 1 else "xla")
+            opts = JOINT_OPTS
+        engine = _resolve_engine(engine, dev.type,
+                                 base_model in PALLAS_MODELS and spec.n_shape == 1)
         if spec.n_shape != 1 and engine in ("pallas", "varpro"):
             raise ValueError(
                 f"joint engine {engine!r} supports single-shape (m=9) bases; "
@@ -836,27 +829,29 @@ def fit_joint_normalmap(
 
         with torch.no_grad():
             if chan is None:
-                chan = torch.stack(
-                    [linear_grid_init(base_model, angles, intensity[..., ch],
-                                      weights=weights[..., ch])
-                     for ch in range(c)], dim=1)
+                # every channel in one call: the angles (T, 1, V) broadcast
+                # against the (T, C, V) measurements → (T, C, m); contiguous,
+                # so that the view sums run as in a call for one channel
+                per_texel = ShadingAngles(*(None if a is None else a[:, None] for a in angles))
+                chan = linear_grid_init(base_model, per_texel,
+                                        intensity.transpose(1, 2).contiguous(),
+                                        weights=weights.transpose(1, 2).contiguous())
             p0 = joint_p0_from_channelwise(chan)                               # (T, 8+k)
 
-            def solve(rnd, p_start, w):
-                with span("fit.solve", round=rnd):
-                    return _joint_solve(base_model, spec, opts, float(max_tilt), engine, p_start,
-                                        geometry, intensity, w)
+            def solve(p_start, w):
+                return _joint_solve(base_model, spec, opts, float(max_tilt), engine, p_start,
+                                    geometry, intensity, w)
 
-            res = solve(0, p0, weights)
-            # IRLS rounds: per-channel robust weights from the JOINT residual (the
-            # fitted normal is part of the model, so shadowed and outlier views are
-            # downweighted against the joint prediction, not the raw-normal one)
-            for rnd in range(1, 1 + (int(robust_iters) if robust else 0)):
-                with span("fit.reweight", round=rnd):
-                    resid = joint_eval(spec, res.p, geometry) - intensity      # (T, V, 3)
-                    w_irls = robust_weights(resid.permute(0, 2, 1), weights.permute(0, 2, 1),
-                                            kind=robust).permute(0, 2, 1)
-                res = solve(rnd, res.p, w_irls)
+            def reweight(r):
+                # per-channel robust weights from the JOINT residual (the fitted
+                # normal is part of the model, so shadowed and outlier views are
+                # downweighted against the joint prediction, not the raw-normal one)
+                resid = joint_eval(spec, r.p, geometry) - intensity          # (T, V, 3)
+                return robust_weights(resid.permute(0, 2, 1), weights.permute(0, 2, 1),
+                                      kind=robust).permute(0, 2, 1)
+
+            res = irls(lambda: solve(p0, weights), reweight, lambda w, r: solve(r.p, w),
+                       int(robust_iters) if robust else 0)
         out = _gather_rows(res, mesh, ALL_AXES, t)
     return out, spec
 
@@ -937,8 +932,8 @@ def fit_single_material(
         return ((spec.fn(p, a) - y) * ww).reshape(-1)
 
     with torch.no_grad():
-        p0 = torch.stack([_median0(linear_grid_init(model, ang, targets[ch], weights=w))
-                          for ch in range(targets.shape[0])])
+        # every channel in one call: (C, T, V) targets → (C, T, m) starts
+        p0 = _median0(linear_grid_init(model, ang, targets, weights=w).transpose(0, 1))
     res = levmar_bc(residual, p0, spec.lower, spec.upper, data=(ang, targets, w), opts=opts,
                     data_axes=(None, 0, None))
     return res.p

@@ -29,7 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from brdf_tpu_torch.models.brdf import MODELS, angles_from_geometry
+from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles, angles_from_geometry
 from brdf_tpu_torch.models.normalmap import (
     JointSpec,
     joint_p0_from_channelwise,
@@ -106,10 +106,13 @@ def _impl(base_model, geom, target, weights, channel_params, iters, max_tilt) ->
     l1, u1 = float(base.lower[1]), float(base.upper[1])
 
     if channel_params is None:
-        ang0 = angles_from_geometry(geom)
-        channel_params = torch.stack(
-            [linear_grid_init(base_model, ang0, target[..., c], weights=w3[..., c])
-             for c in range(3)], dim=1)
+        # every channel in one call: the angles (T, 1, V) broadcast against
+        # the (T, 3, V) measurements → (T, 3, m); contiguous, so that the view
+        # sums run as in a call for one channel
+        ang0 = ShadingAngles(*(None if a is None else a[:, None]
+                               for a in angles_from_geometry(geom)))
+        channel_params = linear_grid_init(base_model, ang0, target.transpose(1, 2).contiguous(),
+                                          weights=w3.transpose(1, 2).contiguous())
     p0 = joint_p0_from_channelwise(channel_params)          # (T, 9)
     sig0 = torch.clamp(p0[..., 6], sig_floor, float(base.upper[2]))
     t0_sig = torch.log(sig0) if use_log else sig0

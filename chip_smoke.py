@@ -2258,8 +2258,9 @@ def phase_joint_main_path(errs: list[float]) -> tuple[int, dict, tuple]:
                             passes=k6.LOOP_SYNCS - syncs - solves[name],
                             grid_init_launches=gi.LAUNCHES - init_before,
                             first_wall_s=time.perf_counter() - t0)
-        # the grid init launches once a channel where no channel report is given
-        check(counts[name]["grid_init_launches"] == (3 if name == "grid_init" else 0),
+        # the grid init launches once, for every channel, where no channel
+        # report is given
+        check(counts[name]["grid_init_launches"] == (1 if name == "grid_init" else 0),
               f"{name}: {counts[name]['grid_init_launches']} grid init launches")
     launches = k6.LAUNCHES["joint_ne"]           # ... and ends here
     check(k6.LAUNCHES["ne"] == 0, "the joint fit launched K6")
@@ -2378,12 +2379,36 @@ def grid_init_bytes(model: str, t: int, v: int) -> float:
     return 4.0 * t * ((a + 2) * v + MODELS[model].n_params)
 
 
+def folded_channels() -> dict:
+    """The joint fit starts every channel with one launch: the angles (T, 1,
+    V) against contiguous (T, 3, V) targets and weights give the three
+    per-channel launches' starts bit for bit, at the joint cell's faces."""
+    model, t = GRID_INIT_SHAPES["ct-joint-face"]
+    rng = np.random.default_rng(91)
+    ang, _, _ = make_problem(rng, t, V, model)
+    y = torch.tensor(rng.uniform(0.0, 1.0, (t, V, 3)), dtype=torch.float32, device=DEVICE)
+    w = torch.tensor(rng.uniform(0.2, 1.0, (t, V, 3)), dtype=torch.float32, device=DEVICE)
+    before = gi.LAUNCHES
+    per = torch.stack([linear_grid_init(model, ang, y[..., c], weights=w[..., c])
+                       for c in range(3)], dim=1)
+    per_launches = gi.LAUNCHES - before
+    folded = linear_grid_init(model, ShadingAngles(*(None if a is None else a[:, None] for a in ang)),
+                              y.transpose(1, 2).contiguous(), weights=w.transpose(1, 2).contiguous())
+    out = dict(model=model, texels=t, equal=bool(torch.equal(per, folded)),
+               per_channel_launches=per_launches,
+               folded_launches=gi.LAUNCHES - before - per_launches)
+    log(f"grid init, channels folded into one launch: {out}")
+    check(out["equal"] and per_launches == 3 and out["folded_launches"] == 1,
+          f"grid init: the folded channels against the per-channel launches: {out}")
+    return out
+
+
 def phase_grid_init() -> dict:
     """The grid init kernel alone between CUDA events at the benchmark cells'
     shapes, beside its bound and the plain version's time on the same
     inputs; then the kernel held to the plain version under the card tests'
     bar (tools/grid_init_agreement.py), with an all-NaN, a zero-weight and an
-    all-zero lane put in."""
+    all-zero lane put in; and the channels folded into one launch."""
     out = {}
     saved = gi.LAUNCHES
     for name, (model, t) in GRID_INIT_SHAPES.items():
@@ -2409,6 +2434,7 @@ def phase_grid_init() -> dict:
               f"grid init {name}: the kernel against the plain version: {held}")
         check(out[name]["roofline_share"] <= 1.05, f"grid init {name}: above its bound")
         del ang, target, w, ang_s, y, ww, got
+    out["folded_channels"] = folded_channels()
     gi.LAUNCHES = saved                           # timing launches are not a main path's
     out["ptxas"] = _build.ptxas_report(_build.BUILD_LOGS.get("grid_init", ""))
     log(f"grid init ptxas: {out['ptxas']}")
@@ -2487,7 +2513,7 @@ def step_timing(base: str, t: int) -> dict:
     with torch.no_grad():
         target = joint_eval(spec, true_p, geom)
     lv, y, w, frame = k6._joint_prep(geom, target, None)
-    cfg = k5.solve_config(base, k6._JOINT_OPTS, spec.lower, spec.upper)
+    cfg = k5.solve_config(base, k6.JOINT_OPTS, spec.lower, spec.upper)
     p = (true_p * 1.05).T.contiguous()
     full = k6.joint_ne_rows(base, "full", lv, y, w, p, frame)
     state = torch.stack([full[0], torch.zeros_like(full[0]), torch.full_like(full[0], 2.0),
@@ -2560,7 +2586,7 @@ def phase_lm_step() -> dict:
         lo, hi = (torch.tensor(b, device=DEVICE) for b in (spec.lower, spec.upper))
         p0 = torch.minimum(torch.maximum(joint_params(rng, T_JOINT, base, 0.2) * 1.2, lo), hi)
         kw = dict(lower=tuple(spec.lower), upper=tuple(spec.upper))
-        first = k6.lm_fit_joint_chunked(base, geom, y, p0, opts=k6._JOINT_OPTS._replace(itmax=6), **kw)
+        first = k6.lm_fit_joint_chunked(base, geom, y, p0, opts=k6.JOINT_OPTS._replace(itmax=6), **kw)
         warm = (first.mu, first.nu, torch.where(first.stop == 3, 0, first.stop).float())
         eq = loop_equality(lambda: k6.lm_fit_joint_chunked(base, geom, y, first.p, warm=warm, **kw))
         check(eq["step_launches"] == 2 * (eq["syncs"] - 1), f"joint {base} warm: {eq}")

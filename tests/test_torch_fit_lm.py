@@ -132,11 +132,62 @@ def test_every_lobe_fits_through_every_lm_engine(model, engine):
     assert ((res.stop >= 1) & (res.stop <= 7)).all() and int(res.iters.max()) <= 3
 
 
+class _Resolved(Exception):
+    """Stops a fit once it has resolved its engine."""
+
+
+@pytest.mark.parametrize("fit, lobe, device, engine, expected", [
+    ("texels", "ward_aniso", "cuda", "auto", "pallas"),
+    ("texels", "ward_aniso", "cpu", "auto", "xla"),
+    ("texels", "blinn_phong", "cuda", "varpro", "varpro"),
+    ("texels", "lambert", "cpu", "pallas", "pallas"),
+    ("texels", "lambert", "cuda", "mosaic", "unknown engine"),
+    ("joint", "cook_torrance", "cuda", "auto", "pallas"),
+    ("joint", "blinn_phong", "cpu", "auto", "xla"),
+    ("joint", "cook_torrance_aniso", "cuda", "auto", "xla"),
+    ("joint", "ward_aniso", "cuda", "pallas", "pallas"),
+    ("joint", "ward", "cuda", "varpro", "varpro"),
+    ("joint", "cook_torrance", "cpu", "mosaic", "unknown engine"),
+])
+def test_one_resolver_serves_both_fits(monkeypatch, fit, lobe, device, engine, expected):
+    """``fit_texels`` and ``fit_joint_normalmap`` resolve their engine by
+    ``parallel/fit.py::_resolve_engine`` alone: "auto" is "pallas" on a CUDA
+    device where a kernel tier takes the fit (any lobe of the per-texel fit,
+    a one-shape base lobe of the joint fit), else "xla"; a named engine
+    passes as it is and an unknown one raises. The fit stops right after."""
+    seen, real = [], tfit._resolve_engine
+
+    def spy(*args):
+        seen.append(real(*args))
+        raise _Resolved
+
+    dev = torch.device(device)
+    monkeypatch.setattr(tfit, "resolve_device", lambda d: dev)
+    monkeypatch.setattr(tpipe, "resolve_device", lambda d: dev)
+    monkeypatch.setattr(tfit, "_resolve_engine", spy)
+    monkeypatch.setattr(tpipe, "_resolve_engine", spy)
+    if fit == "texels":
+        ang = tb.ShadingAngles(*(torch.zeros(2, 4) for _ in tb.ShadingAngles._fields))
+        run = lambda: tfit.fit_texels(lobe, ang, torch.zeros(2, 4), engine=engine)  # noqa: E731
+    else:
+        geom = tb.ShadingGeometry(n=np.zeros((2, 3), np.float32),
+                                  l=np.zeros((2, 4, 3), np.float32),
+                                  v=np.zeros((2, 4, 3), np.float32))
+        prob = TexelProblem(angles=None, intensity=np.zeros((2, 4, 3), np.float32),
+                            weights=np.ones((2, 4), np.float32), face_ids=np.arange(2),
+                            geometry=geom)
+        run = lambda: tpipe.fit_joint_normalmap(prob, lobe, engine=engine)  # noqa: E731
+    if expected == "unknown engine":
+        with pytest.raises(ValueError, match="unknown engine"):
+            run()
+        assert seen == []
+        return
+    with pytest.raises(_Resolved):
+        run()
+    assert seen == [expected]
+
+
 def test_auto_resolves_by_device_and_model(monkeypatch):
-    assert tfit._resolve_engine("auto", "cuda", "ward_aniso") == "pallas"
-    assert tfit._resolve_engine("auto", "cpu", "ward_aniso") == "xla"
-    assert tfit._resolve_engine("auto", "cuda", "not_a_kernel_lobe") == "xla"
-    assert tfit._resolve_engine("varpro", "cuda", "blinn_phong") == "varpro"
     cols, y, w, _ = _texels("lambert", seed=1)
     calls = []
     real_eager, real_fused = tfit.levmar_bc, tfit.lm_fit_fused

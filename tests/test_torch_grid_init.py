@@ -30,8 +30,8 @@ import numpy as np
 import pytest
 import torch
 
-from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles
-from brdf_tpu_torch.ops import grid_init
+from brdf_tpu_torch.models.brdf import MODELS, ShadingAngles, ShadingGeometry
+from brdf_tpu_torch.ops import grid_init, ne
 from brdf_tpu_torch.ops.shading import SHADING_KERNELS
 from brdf_tpu_torch.solver import init
 from brdf_tpu_torch.utils import profiling
@@ -239,7 +239,7 @@ import sys
 from brdf_tpu_torch.ops import _build, grid_init
 from brdf_tpu_torch.solver import init
 assert "grid_init" in _build.SOURCES and not _build.BUILD_LOGS
-assert _build.load.cache_info().currsize == 0 and grid_init._entry.cache_info().currsize == 0
+assert _build.load.cache_info().currsize == 0 and _build.lookup.cache_info().currsize == 0
 assert grid_init.LAUNCHES == 0 and "triton" not in sys.modules
 print("clean")
 """
@@ -247,6 +247,94 @@ print("clean")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip().endswith("clean"), out.stderr[-2000:]
+
+
+def _channels(model, t=40, v=16, seed=0, per_channel=True):
+    """(T, V) angles, (T, V, 3) targets and weights, (T, V, 3) or (T, V),
+    with a zero-weight lane, an all-NaN lane and one NaN channel."""
+    ang, _, _ = _case(model, t, v, seed)
+    rng = np.random.default_rng(seed + 1)
+    y = torch.tensor(rng.uniform(0.0, 1.0, (t, v, 3)), dtype=torch.float32)
+    w = torch.tensor(rng.uniform(0.2, 1.0, (t, v, 3) if per_channel else (t, v)),
+                     dtype=torch.float32)
+    w[1] = 0.0
+    y[2] = float("nan")
+    y[3, :, 1] = float("nan")
+    return ang, y, w
+
+
+@pytest.mark.parametrize("weights", ["per_channel", "shared"])
+@pytest.mark.parametrize("model", ["minnaert", "cook_torrance_fresnel", *ne.JOINT_MODELS])
+def test_channels_folded_into_one_call_are_the_per_channel_starts(model, weights):
+    """The fits start every channel with one call: the angles as (T, 1, V)
+    against contiguous (T, C, V) targets and weights give, bit for bit, the
+    per-channel calls' (T, m) starts stacked on axis 1 (a one-shape lobe, a
+    two-shape lobe and the joint fit's base lobes; weights per channel or
+    shared by the channels)."""
+    ang, y, w = _channels(model, per_channel=weights == "per_channel")
+    w3 = w if w.ndim == 3 else w[..., None].expand(y.shape)
+    per = torch.stack([init.linear_grid_init(model, ang, y[..., c], weights=w3[..., c])
+                       for c in range(3)], dim=1)
+    folded = init.linear_grid_init(model, ShadingAngles(*(a[:, None] for a in ang)),
+                                   y.transpose(1, 2).contiguous(),
+                                   weights=w3.transpose(1, 2).contiguous())
+    assert folded.shape == (40, 3, MODELS[model].n_params)
+    assert torch.equal(folded, per)
+
+
+class _Started(Exception):
+    """Stops a fit once it has its start."""
+
+
+@pytest.mark.parametrize("fit", ["joint", "varpro_joint", "single_material"])
+def test_the_fits_start_every_channel_in_one_call(monkeypatch, fit):
+    """``fit_joint_normalmap``, ``varpro_fit_joint`` and
+    ``fit_single_material`` call ``linear_grid_init`` once for all channels
+    and start where the per-channel calls did."""
+    from brdf_tpu_torch.models.brdf import angles_from_geometry
+    from brdf_tpu_torch.models.normalmap import joint_p0_from_channelwise
+    from brdf_tpu_torch.pipeline import fit as pfit
+    from brdf_tpu_torch.pipeline.fit import TexelProblem
+    from brdf_tpu_torch.solver import varpro_joint
+    from torch_port_inputs import joint_problem
+
+    base = "blinn_phong" if fit == "single_material" else "cook_torrance"
+    geom_np, _, rng = joint_problem(24, 16, seed=5, base=base)
+    geom = ShadingGeometry(**{k: torch.tensor(x) for k, x in geom_np.items()})
+    ang = angles_from_geometry(geom)
+    y = torch.tensor(rng.uniform(0.0, 1.0, (24, 16, 3)), dtype=torch.float32)
+    w = torch.tensor(rng.uniform(0.2, 1.0, (24, 16)), dtype=torch.float32)
+    w3 = w[..., None].expand(y.shape)
+    per = torch.stack([init.linear_grid_init(base, ang, y[..., c], weights=w3[..., c])
+                       for c in range(3)], dim=1)
+    mod = varpro_joint if fit == "varpro_joint" else pfit
+    calls, seen = [], []
+    real = mod.linear_grid_init
+    monkeypatch.setattr(mod, "linear_grid_init",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+
+    def started(*args, **kw):
+        seen.append(args)
+        raise _Started
+
+    prob = TexelProblem(angles=ang, intensity=y, weights=w, face_ids=np.arange(24),
+                        geometry=geom)
+    if fit == "joint":
+        monkeypatch.setattr(pfit, "_joint_solve", started)
+        with pytest.raises(_Started):
+            pfit.fit_joint_normalmap(prob, base, device="cpu", mask_saturation=False)
+        assert torch.equal(seen[0][5], joint_p0_from_channelwise(per))
+    elif fit == "varpro_joint":
+        monkeypatch.setattr(varpro_joint, "joint_p0_from_channelwise", started)
+        with pytest.raises(_Started):
+            varpro_joint.varpro_fit_joint(base, geom, y, weights=w, iters=1)
+        assert torch.equal(seen[0][0], per)
+    else:
+        monkeypatch.setattr(pfit, "levmar_bc", started)
+        with pytest.raises(_Started):
+            pfit.fit_single_material(prob, base, device="cpu")
+        assert torch.equal(seen[0][1], pfit._median0(per))
+    assert calls == [1]
 
 
 # ---------------------------------------------------------------------------

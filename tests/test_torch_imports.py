@@ -127,9 +127,9 @@ bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "brdf_tpu"
 assert not bad, bad
 assert {"ne", "joint_ne"} <= set(_build.SOURCES) and not _build.BUILD_LOGS
 assert _build.load.cache_info().currsize == 0 and native.load.cache_info().currsize == 0
-assert ne._ne_entry.cache_info().currsize == 0 and ne._joint_entry.cache_info().currsize == 0
+assert _build.lookup.cache_info().currsize == 0
 assert ne.LAUNCHES == {"ne": 0, "joint_ne": 0, "lm_step": 0} and ne.LOOP_SYNCS == 0
-assert "lm_step" in _build.SOURCES and ne._step_entries.cache_info().currsize == 0
+assert "lm_step" in _build.SOURCES
 print("clean")
 """
     env = {k: v for k, v in __import__("os").environ.items() if k != "PYTHONPATH"}
@@ -159,7 +159,7 @@ from brdf_tpu_torch.solver.varpro import (_SEPARABLE_ND, _nnls3, _solve_damped_s
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "brdf_tpu", "PIL", "triton")]
 assert not bad, bad
 assert "varpro_nd" in _build.SOURCES and not _build.BUILD_LOGS
-assert _build.load.cache_info().currsize == 0 and varpro_nd._entry.cache_info().currsize == 0
+assert _build.load.cache_info().currsize == 0 and _build.lookup.cache_info().currsize == 0
 assert varpro_nd.LAUNCHES == 0
 assert set(_SEPARABLE_ND) == {"cook_torrance_fresnel", "ward_aniso", "cook_torrance_aniso"}
 print("clean")

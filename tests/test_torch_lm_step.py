@@ -12,7 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from brdf_tpu_torch.ops import lm as k5, ne  # noqa: E402
+from brdf_tpu_torch.ops import _build, lm as k5, ne  # noqa: E402
 from brdf_tpu_torch.solver.lm import LMOptions, StopReason  # noqa: E402
 
 STEP_M = (1, 2, 3, 4, 5, 9)
@@ -201,10 +201,11 @@ class _FakeEntry:
 
 def _stand_in(monkeypatch, err=0):
     entries = (_FakeEntry(err), _FakeEntry(err))
+    by_entry = dict(zip((ne._PROPOSE, ne._ACCEPT), entries))
     monkeypatch.setattr(ne, "LAUNCHES", {"ne": 0, "joint_ne": 0, "lm_step": 0})
-    monkeypatch.setattr(ne, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(_build, "check_operands", lambda *a: None)
     monkeypatch.setattr(ne, "_check_count", lambda *a: None)
-    monkeypatch.setattr(ne, "_step_entries", lambda: entries)
+    monkeypatch.setattr(_build, "lookup", by_entry.__getitem__)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device: type("S", (), {"cuda_stream": 7}))
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     return entries

@@ -21,7 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from brdf_tpu.ops.lm_pallas import _joint_ne_call, _joint_prep as j_joint_prep  # noqa: E402
-from brdf_tpu_torch.ops import lanegroup, lm as k5, ne  # noqa: E402
+from brdf_tpu_torch.ops import _build, lanegroup, lm as k5, ne  # noqa: E402
 from brdf_tpu_torch.ops.shading import SHADING_KERNELS  # noqa: E402
 from test_torch_joint_ne import _case as _joint_case, _port_rows as _joint_port_rows  # noqa: E402
 from test_torch_joint_ne import _stacks64  # noqa: E402
@@ -187,9 +187,8 @@ def test_the_wrapper_launches_the_layout_the_plain_version_sums_in(monkeypatch, 
     entry = _FakeEntry()
     monkeypatch.setattr(ne, "LAUNCHES", {"ne": 0, "joint_ne": 0})
     monkeypatch.setattr(ne, "ne_layout", spy)
-    monkeypatch.setattr(ne, "_check_cuda", lambda *a: None)
-    monkeypatch.setattr(ne, "_ne_entry", lambda: (entry, None))
-    monkeypatch.setattr(ne, "_joint_entry", lambda: (entry, None))
+    monkeypatch.setattr(_build, "check_operands", lambda *a: None)
+    monkeypatch.setattr(_build, "lookup", lambda e: entry)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device: type("S", (), {"cuda_stream": 0}))
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     model, m = "cook_torrance", 3
@@ -258,7 +257,7 @@ def test_a_texels_rows_do_not_depend_on_its_batch(v):
 def test_a_layout_the_kernel_refuses_raises_before_a_launch(monkeypatch):
     monkeypatch.setattr(ne, "LAUNCHES", {"ne": 0, "joint_ne": 0})
     monkeypatch.setattr(ne, "ne_layout", lambda *a: 8)
-    monkeypatch.setattr(ne, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(_build, "check_operands", lambda *a: None)
     empty = torch.empty(1)
     with pytest.raises(ValueError, match="does not take a split of 8 warps"):
         ne.joint_ne_rows_cuda("cook_torrance", "full", empty.expand(6, 4, 8), empty.expand(3, 4, 8),

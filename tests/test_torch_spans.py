@@ -145,6 +145,53 @@ def test_fit_per_texel_spans(scan, engine):
     assert not {"lm.solve", "lm.pass"} & {s.name for s in spans}
 
 
+def _rounds(spans):
+    """The (name, round) of the fit's own solves and reweightings, in order."""
+    root = next(s for s in spans if s.parent is None)
+    return [(s.name, s.attrs["round"]) for s in spans
+            if s.parent == root.id and s.name in ("fit.solve", "fit.reweight")]
+
+
+@pytest.mark.parametrize("engine", ["pallas", "varpro"])
+def test_a_checkpointed_robust_fit_records_the_rounds_of_the_unchunked_one(
+        scan, tmp_path, engine):
+    """With a checkpointer the fit's rounds are the unchunked fit's spans,
+    round 0's solve holding the chunks; the parameters are those of the
+    checkpointed fit followed by refits from each round's parameters."""
+    from brdf_tpu_torch.pipeline import fit as pfit
+    from brdf_tpu_torch.solver.robust import robust_weights, saturation_weights
+    from brdf_tpu_torch.utils.checkpoint import FitCheckpointer
+
+    _, _, problem = scan
+    opts = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=12)
+    kw = dict(engine=engine, device="cpu", opts=opts, robust="huber", robust_iters=2)
+    profiling.enable()
+    fit_per_texel(problem, MODEL, **kw)
+    whole = _rounds(profiling.records())
+    profiling.reset()
+    chunked = fit_per_texel(problem, MODEL, checkpointer=FitCheckpointer(str(tmp_path / "a")),
+                            chunk_iters=6, **kw)
+    assert _rounds(profiling.records()) == whole == [
+        ("fit.solve", 0), ("fit.reweight", 1), ("fit.solve", 1), ("fit.reweight", 2),
+        ("fit.solve", 2)]
+    profiling.enable(False)
+
+    # the same fit written out: the checkpointed solve, then two refits
+    t, v, c = problem.intensity.shape
+    ang = type(problem.angles)(*(None if a is None else torch.as_tensor(a).repeat_interleave(c, 0)
+                                 for a in problem.angles))
+    target = torch.as_tensor(problem.intensity).permute(0, 2, 1).reshape(t * c, v)
+    w = torch.as_tensor(problem.weights).repeat_interleave(c, 0) * saturation_weights(target)
+    dev = torch.device("cpu")
+    res = pfit._fit_chunked(MODEL, ang, target, dev, opts, w, engine,
+                            FitCheckpointer(str(tmp_path / "b")), 6, True)
+    for _ in range(2):
+        w_irls = robust_weights(pfit.MODELS[MODEL].fn(res.p, ang) - target, w, kind="huber")
+        res = pfit._fit_block(MODEL, ang, target, dev, None, opts=opts, weights=w_irls, p0=res.p,
+                              engine=engine)
+    torch.testing.assert_close(chunked.params, res.p.reshape(t, c, -1), rtol=0, atol=0)
+
+
 def test_joint_fit_spans_and_the_loop_counters(scan):
     _, _, problem = scan
     profiling.enable()
@@ -157,7 +204,7 @@ def test_joint_fit_spans_and_the_loop_counters(scan):
     assert root.name == "fit" and root.parent is None and root.attrs["engine"] == "pallas"
     assert {s.request for s in spans} == {root.request}
     assert _names_under(root, spans) == sorted(
-        ["fit.upload"] + ["fit.init"] * 3 + ["fit.solve"] * 3 + ["fit.reweight"] * 2)
+        ["fit.upload", "fit.init"] + ["fit.solve"] * 3 + ["fit.reweight"] * 2)
     solves = [s for s in spans if s.name == "lm.solve"]
     passes = [s for s in spans if s.name == "lm.pass"]
     assert len(solves) == 3 and all(by_id[s.parent].name == "fit.solve" for s in solves)
