@@ -14,14 +14,16 @@ import hashlib
 import os
 import tempfile
 import zipfile
+from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from brdf_tpu_torch.geometry.camera import Camera
 from brdf_tpu_torch.geometry.mesh import TriangleMesh
 from brdf_tpu_torch.geometry.rasterize import RasterMap, rasterize_mesh
 from brdf_tpu_torch.io import load_cal, load_scene_images, led_rig_positions
-from brdf_tpu_torch.utils.profiling import span
+from brdf_tpu_torch.utils.profiling import count, span
 
 # the disk tier of Scene.raster_map: a directory of this package's own
 CACHE_DIR_ENV = "BRDF_TPU_TORCH_CACHE_DIR"
@@ -29,6 +31,58 @@ CACHE_DIR_ENV = "BRDF_TPU_TORCH_CACHE_DIR"
 
 def _default_cache_dir() -> str:
     return os.path.join(tempfile.gettempdir(), "brdf_tpu_torch_cache")
+
+
+class DeviceMesh(NamedTuple):
+    """The mesh on one device, as the device relight reads it
+    (``pipeline/render.py::gather_on_device``)."""
+
+    vertices: torch.Tensor        # (V, 3) float32
+    faces: torch.Tensor           # (F, 3) int64
+    vertex_normals: torch.Tensor  # (V, 3) float32
+    face_normals: torch.Tensor    # (F, 3) float32
+
+
+def device_mesh(mesh: TriangleMesh, device) -> DeviceMesh:
+    """Upload ``mesh`` to ``device``."""
+    def up(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
+
+    return DeviceMesh(vertices=up(mesh.vertices, np.float32), faces=up(mesh.faces, np.int64),
+                      vertex_normals=up(mesh.vertex_normals, np.float32),
+                      face_normals=up(mesh.face_normals, np.float32))
+
+
+class DeviceRasterMap(NamedTuple):
+    """A view's raster map on the device of its mesh, in the compact form the
+    device relight reads (``pipeline/render.py::shade_device_map``): the
+    covered pixels alone, in the raster map's row-major order."""
+
+    height: int
+    width: int
+    pixels: torch.Tensor          # (N,) int64 flat index y·W + x of each covered pixel
+    face_id: torch.Tensor         # (N,) int32 its face
+    bary: torch.Tensor            # (N, 3) float32 its barycentrics
+    mesh: DeviceMesh              # the mesh it was rasterized from, shared by every view
+
+
+def device_raster_map(dmesh: DeviceMesh, rm: RasterMap) -> DeviceRasterMap:
+    """Upload the covered pixels of ``rm`` to the device of ``dmesh``
+    (counted in ``render.device_map_uploads``)."""
+    count("render.device_map_uploads")
+    h, w = rm.face_id.shape
+    cov = rm.coverage.reshape(-1)
+
+    def up(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(dmesh.vertices.device)
+
+    return DeviceRasterMap(
+        height=h, width=w,
+        pixels=up(np.flatnonzero(cov), np.int64),
+        face_id=up(rm.face_id.reshape(-1)[cov], np.int32),
+        bary=up(rm.bary.reshape(-1, 3)[cov], np.float32),
+        mesh=dmesh,
+    )
 
 
 @dataclasses.dataclass
@@ -39,6 +93,8 @@ class Scene:
     images: np.ndarray             # (V, H, W, 3) float32 in [0, 1]
     name: str = "scene"
     _raster_cache: dict = dataclasses.field(default_factory=dict, repr=False)
+    _device_maps: dict = dataclasses.field(default_factory=dict, repr=False)
+    _device_meshes: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def num_views(self) -> int:
@@ -57,6 +113,22 @@ class Scene:
                 self._raster_cache[key], hit = self._raster_cached(cam)
             sp.set(hit=hit)
         return self._raster_cache[key]
+
+    def device_map(self, view: int, device) -> DeviceRasterMap:
+        """The view's raster map on ``device``, compact
+        (:func:`device_raster_map`), kept per (camera object, device) beside
+        the raster map it was made from: a raster map made anew (its cache
+        cleared) is uploaded anew. The mesh it reads is held once per device."""
+        rm = self.raster_map(view)
+        dev = torch.device(device)
+        mesh = self._device_meshes.get(dev)
+        if mesh is None or mesh[0] is not self.mesh:
+            mesh = self._device_meshes[dev] = (self.mesh, device_mesh(self.mesh, dev))
+        key = (id(self.cameras[view]), dev)
+        held = self._device_maps.get(key)
+        if held is None or held[0] is not rm or held[1].mesh is not mesh[1]:
+            held = self._device_maps[key] = (rm, device_raster_map(mesh[1], rm))
+        return held[1]
 
     def _raster_cached(self, cam: Camera) -> tuple[RasterMap, str]:
         """The map and where it came from: ``"disk"`` or ``"miss"`` (rasterized)."""

@@ -228,7 +228,7 @@ def test_relight_spans(scan):
     assert all(s.parent == root.id for s in spans[1:])
     gather, shade = spans[2], spans[3]
     covered = int(scene.raster_map(0).coverage.sum())
-    assert gather.attrs == {"pixels": covered}
+    assert gather.attrs == {"path": "host", "pixels": covered}
     assert shade.attrs == {"pixels": covered, "lights": 1}
 
 
