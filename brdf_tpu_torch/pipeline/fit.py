@@ -872,7 +872,8 @@ def fit_joint_normalmap_with_gains(
     ``(res, spec, gains)``; the fitted forward model of the scan is
     ``gains[v] · model(params)`` (renders under novel lights ignore the gains:
     they are a property of the rig, not the material). ``kwargs`` go to
-    :func:`fit_joint_normalmap`.
+    :func:`fit_joint_normalmap`. Each gain round's prediction, its copy to
+    the host and the gain solve are a ``fit.gains`` span (round, views).
     """
     intensity = _to_numpy(problem.intensity)
     w_base = _to_numpy(problem.weights).astype(intensity.dtype)
@@ -888,10 +889,10 @@ def fit_joint_normalmap_with_gains(
         res, spec = fit_joint_normalmap(prob, base_model, mask_saturation=False, **kwargs)
         if r == rounds:
             break
-        with torch.no_grad():
+        with torch.no_grad(), span("fit.gains", round=r + 1, views=len(gains)):
             geometry = ShadingGeometry(*(_as_tensor(x, res.p.device) for x in problem.geometry))
             pred = joint_eval(spec, res.p, geometry).cpu().numpy()
-        gains = estimate_view_gains(pred, intensity, w3)
+            gains = estimate_view_gains(pred, intensity, w3)
     return res, spec, gains
 
 

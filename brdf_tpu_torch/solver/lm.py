@@ -20,6 +20,13 @@ residual axis is sharded over the ranks of that axis of the current mesh
 (``parallel/mesh.py::use_mesh``): χ², JᵀJ and Jᵀe are per-rank partial sums
 added by ``axis_sum``, and the solve and damping control after them are the
 same bits on every rank.
+
+While ``utils/profiling.py`` records, a call of :func:`levmar_bc` is a
+``levmar.solve`` span (lanes, m, n, jac_mode) and each outer iteration a
+``levmar.iter`` span; the counter ``levmar.syncs`` counts every host test of
+the lanes (outer and inner), and at the call's end ``levmar.lanes`` (lanes ×
+outer iterations) and ``levmar.active_lanes`` (the iterations the lanes ran,
+one read of the device) are added.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ import torch
 
 from brdf_tpu_torch.parallel.mesh import axis_sum
 from brdf_tpu_torch.solver import axb
+from brdf_tpu_torch.utils import profiling
+from brdf_tpu_torch.utils.profiling import count, span
 
 
 class StopReason(enum.IntEnum):
@@ -292,9 +301,11 @@ def levmar_bc(
         """A sum over the residual axis, across the ranks of ``axis_name``."""
         return axis_sum(x, opts.axis_name)
 
-    with torch.no_grad():
+    jac_name = "jac_fn" if jac_fn is not None else jac_mode
+    with torch.no_grad(), span("levmar.solve", lanes=b, m=p0.shape[-1], jac_mode=jac_name) as sp:
         p = proj(p0)
         e = res_b(p, data)
+        sp.set(n=e.shape[-1])
         chi2 = rsum(torch.sum(e * e, -1))
         chi2_0 = chi2
         stop = torch.where(torch.isfinite(chi2), code(StopReason.RUNNING, stop_w),
@@ -313,117 +324,134 @@ def levmar_bc(
             age = torch.zeros(b, dtype=torch.int32, device=dev)
             njev = torch.ones_like(njev)
 
-        while True:
-            act = (stop == running) & (iters < opts.itmax)
-            if not bool(act.any()):
-                break
-            nu_in = nu
-            if secant_k:
-                dp_s, de_s = p - p_prev, e - e_prev
-                den = torch.sum(dp_s * dp_s, -1)
-                # rank-1 secant: J += ((Δe − J Δp) Δpᵀ)/‖Δp‖² (lm_core.c:578-588)
-                outer = (de_s - (jac_c @ dp_s[..., None])[..., 0])[..., :, None] * dp_s[..., None, :]
-                j_upd = jac_c + outer / torch.clamp(den, min=tiny)[:, None, None]
-                j_upd = torch.where((den > tiny)[:, None, None], j_upd, jac_c)
-                # refresh on age, and whenever damping has blown up through
-                # rejected steps (ν > 16), with ν reset as lm_core.c:587 does
-                nu_blown = nu > 16.0
-                refresh = (age >= secant_k) | nu_blown
-                j = j_upd
-                if bool((refresh & act).any()):
-                    j = torch.where(refresh[:, None, None], jac_b(p, data), j_upd)
-                age_n = torch.where(refresh, torch.zeros_like(age), age + 1)
-                nu_in = torch.where(nu_blown, torch.full_like(nu, 2.0), nu)
-                dj = refresh.to(torch.int32)
-            else:
-                j = jac_b(p, data)                              # (B, n, m)
-                dj = torch.ones_like(njev)
-            jtj = rsum(j.transpose(-1, -2) @ j)
-            g = rsum((j.transpose(-1, -2) @ e[..., None])[..., 0])
+        # one host test of the lanes a pass: ``levmar.iter`` runs from an
+        # iteration's first launch to the test that ends it
+        passes = 0
+        act = (stop == running) & (iters < opts.itmax)
+        more = bool(act.any())
+        count("levmar.syncs")
+        while more:
+            with span("levmar.iter"):
+                nu_in = nu
+                if secant_k:
+                    dp_s, de_s = p - p_prev, e - e_prev
+                    den = torch.sum(dp_s * dp_s, -1)
+                    # rank-1 secant: J += ((Δe − J Δp) Δpᵀ)/‖Δp‖² (lm_core.c:578-588)
+                    outer = ((de_s - (jac_c @ dp_s[..., None])[..., 0])[..., :, None]
+                             * dp_s[..., None, :])
+                    j_upd = jac_c + outer / torch.clamp(den, min=tiny)[:, None, None]
+                    j_upd = torch.where((den > tiny)[:, None, None], j_upd, jac_c)
+                    # refresh on age, and whenever damping has blown up through
+                    # rejected steps (ν > 16), with ν reset as lm_core.c:587 does
+                    nu_blown = nu > 16.0
+                    refresh = (age >= secant_k) | nu_blown
+                    j = j_upd
+                    count("levmar.syncs")
+                    if bool((refresh & act).any()):
+                        j = torch.where(refresh[:, None, None], jac_b(p, data), j_upd)
+                    age_n = torch.where(refresh, torch.zeros_like(age), age + 1)
+                    nu_in = torch.where(nu_blown, torch.full_like(nu, 2.0), nu)
+                    dj = refresh.to(torch.int32)
+                else:
+                    j = jac_b(p, data)                              # (B, n, m)
+                    dj = torch.ones_like(njev)
+                jtj = rsum(j.transpose(-1, -2) @ j)
+                g = rsum((j.transpose(-1, -2) @ e[..., None])[..., 0])
 
-            # projected-gradient convergence measure
-            gi = torch.amax(torch.abs(p - proj(p - g)), -1)
-            grad_conv = gi <= opts.eps1
+                # projected-gradient convergence measure
+                gi = torch.amax(torch.abs(p - proj(p - g)), -1)
+                grad_conv = gi <= opts.eps1
 
-            # active-set freeze of bound-stuck coordinates
-            frozen = ((p <= lower_b) & (g > 0)) | ((p >= upper_b) & (g < 0))
-            free = (~frozen).to(dtype)
-            jtj_f = jtj * (free[:, :, None] * free[:, None, :]) + torch.diag_embed(frozen.to(dtype))
-            g_f = g * free
+                # active-set freeze of bound-stuck coordinates
+                frozen = ((p <= lower_b) & (g > 0)) | ((p >= upper_b) & (g < 0))
+                free = (~frozen).to(dtype)
+                jtj_f = (jtj * (free[:, :, None] * free[:, None, :])
+                         + torch.diag_embed(frozen.to(dtype)))
+                g_f = g * free
 
-            diag_max = torch.amax(torch.diagonal(jtj, dim1=-2, dim2=-1), -1)
-            t_mu = torch.where((iters == 0) & (mu <= 0), opts.tau * diag_max, mu)
-            t_nu, t_p, t_e, t_chi2 = nu_in, p, e, chi2
-            t_stop = torch.full_like(stop, running)
-            t_nfev = nfev
-            accepted = torch.zeros_like(act)
-            tries = torch.zeros_like(iters)
+                diag_max = torch.amax(torch.diagonal(jtj, dim1=-2, dim2=-1), -1)
+                t_mu = torch.where((iters == 0) & (mu <= 0), opts.tau * diag_max, mu)
+                t_nu, t_p, t_e, t_chi2 = nu_in, p, e, chi2
+                t_stop = torch.full_like(stop, running)
+                t_nfev = nfev
+                accepted = torch.zeros_like(act)
+                tries = torch.zeros_like(iters)
 
-            while True:
-                ia = act & (~accepted) & (t_stop == running) & (tries < opts.max_inner)
-                if not bool(ia.any()):
-                    break
-                dp = _solve_damped(jtj_f, g_f, t_mu, opts.linsolver)
-                pnew = proj(p + dp)
-                dpa = pnew - p                                  # the projected step
-                dp_norm2 = torch.sum(dpa * dpa, -1)
-                p_norm2 = torch.sum(p * p, -1)
-                solver_failed = ~torch.isfinite(dp).all(-1)
-                small_dp = dp_norm2 <= opts.eps2 * opts.eps2 * p_norm2
+                while True:
+                    ia = act & (~accepted) & (t_stop == running) & (tries < opts.max_inner)
+                    count("levmar.syncs")
+                    if not bool(ia.any()):
+                        break
+                    dp = _solve_damped(jtj_f, g_f, t_mu, opts.linsolver)
+                    pnew = proj(p + dp)
+                    dpa = pnew - p                                  # the projected step
+                    dp_norm2 = torch.sum(dpa * dpa, -1)
+                    p_norm2 = torch.sum(p * p, -1)
+                    solver_failed = ~torch.isfinite(dp).all(-1)
+                    small_dp = dp_norm2 <= opts.eps2 * opts.eps2 * p_norm2
 
-                enew = res_b(pnew, data)
-                chi2new = rsum(torch.sum(enew * enew, -1))
-                finite = torch.isfinite(chi2new)
-                df = t_chi2 - chi2new
-                # predicted reduction −(2 gᵀδ + δᵀ JᵀJ δ), valid for a projected step
-                jd = (jtj @ dpa[..., None])[..., 0]
-                dl = -(2.0 * torch.sum(g * dpa, -1) + torch.sum(dpa * jd, -1))
+                    enew = res_b(pnew, data)
+                    chi2new = rsum(torch.sum(enew * enew, -1))
+                    finite = torch.isfinite(chi2new)
+                    df = t_chi2 - chi2new
+                    # predicted reduction −(2 gᵀδ + δᵀ JᵀJ δ), valid for a projected step
+                    jd = (jtj @ dpa[..., None])[..., 0]
+                    dl = -(2.0 * torch.sum(g * dpa, -1) + torch.sum(dpa * jd, -1))
 
-                accept = (~solver_failed) & finite & (df > 0)
-                rho = torch.where(dl > 0, df / torch.clamp(dl, min=tiny), torch.ones_like(dl))
-                tmp = 2.0 * rho - 1.0
-                mu_acc = t_mu * torch.clamp(1.0 - tmp * tmp * tmp, min=1.0 / 3.0)
-                mu_next = torch.where(accept, mu_acc, t_mu * t_nu)
-                nu_next = torch.where(accept, torch.full_like(t_nu, 2.0), t_nu * 2.0)
+                    accept = (~solver_failed) & finite & (df > 0)
+                    rho = torch.where(dl > 0, df / torch.clamp(dl, min=tiny), torch.ones_like(dl))
+                    tmp = 2.0 * rho - 1.0
+                    mu_acc = t_mu * torch.clamp(1.0 - tmp * tmp * tmp, min=1.0 / 3.0)
+                    mu_next = torch.where(accept, mu_acc, t_mu * t_nu)
+                    nu_next = torch.where(accept, torch.full_like(t_nu, 2.0), t_nu * 2.0)
 
-                st = torch.full_like(stop, running)
-                st = torch.where(small_dp & ~solver_failed, code(StopReason.SMALL_DP, st), st)
-                st = torch.where(mu_next > opts.mu_max, code(StopReason.NO_REDUCTION, st), st)
-                st = torch.where(solver_failed & (t_mu > opts.mu_max / 2),
-                                 code(StopReason.SINGULAR, st), st)
+                    st = torch.full_like(stop, running)
+                    st = torch.where(small_dp & ~solver_failed, code(StopReason.SMALL_DP, st), st)
+                    st = torch.where(mu_next > opts.mu_max, code(StopReason.NO_REDUCTION, st), st)
+                    st = torch.where(solver_failed & (t_mu > opts.mu_max / 2),
+                                     code(StopReason.SINGULAR, st), st)
 
-                take = ia & accept
-                t_p = torch.where(take[:, None], pnew, t_p)
-                t_e = torch.where(take[:, None], enew, t_e)
-                t_chi2 = torch.where(take, chi2new, t_chi2)
-                t_mu = torch.where(ia, mu_next, t_mu)
-                t_nu = torch.where(ia, nu_next, t_nu)
-                t_stop = torch.where(ia, st, t_stop)
-                t_nfev = t_nfev + ia.to(torch.int32)
-                accepted = accepted | take
-                tries = tries + ia.to(torch.int32)
+                    take = ia & accept
+                    t_p = torch.where(take[:, None], pnew, t_p)
+                    t_e = torch.where(take[:, None], enew, t_e)
+                    t_chi2 = torch.where(take, chi2new, t_chi2)
+                    t_mu = torch.where(ia, mu_next, t_mu)
+                    t_nu = torch.where(ia, nu_next, t_nu)
+                    t_stop = torch.where(ia, st, t_stop)
+                    t_nfev = t_nfev + ia.to(torch.int32)
+                    accepted = accepted | take
+                    tries = tries + ia.to(torch.int32)
 
-            st = t_stop
-            st = torch.where((st == running) & (~accepted), code(StopReason.NO_REDUCTION, st), st)
-            st = torch.where(t_chi2 <= opts.eps3, code(StopReason.SMALL_CHI2, st), st)
-            st = torch.where(grad_conv, code(StopReason.SMALL_GRADIENT, st), st)
+                st = t_stop
+                st = torch.where((st == running) & (~accepted), code(StopReason.NO_REDUCTION, st),
+                                 st)
+                st = torch.where(t_chi2 <= opts.eps3, code(StopReason.SMALL_CHI2, st), st)
+                st = torch.where(grad_conv, code(StopReason.SMALL_GRADIENT, st), st)
 
-            if secant_k:
-                jac_c = torch.where(act[:, None, None], j, jac_c)
-                p_prev = torch.where(act[:, None], p, p_prev)
-                e_prev = torch.where(act[:, None], e, e_prev)
-                age = torch.where(act, age_n, age)
-            p = torch.where(act[:, None], t_p, p)
-            e = torch.where(act[:, None], t_e, e)
-            chi2 = torch.where(act, t_chi2, chi2)
-            g_inf = torch.where(act, gi, g_inf)
-            mu = torch.where(act, t_mu, mu)
-            nu = torch.where(act, t_nu, nu)
-            iters = iters + act.to(torch.int32)
-            stop = torch.where(act, st, stop)
-            nfev = torch.where(act, t_nfev, nfev)
-            njev = njev + torch.where(act, dj, torch.zeros_like(dj))
-            nlss = nlss + torch.where(act, tries, torch.zeros_like(tries))
+                if secant_k:
+                    jac_c = torch.where(act[:, None, None], j, jac_c)
+                    p_prev = torch.where(act[:, None], p, p_prev)
+                    e_prev = torch.where(act[:, None], e, e_prev)
+                    age = torch.where(act, age_n, age)
+                p = torch.where(act[:, None], t_p, p)
+                e = torch.where(act[:, None], t_e, e)
+                chi2 = torch.where(act, t_chi2, chi2)
+                g_inf = torch.where(act, gi, g_inf)
+                mu = torch.where(act, t_mu, mu)
+                nu = torch.where(act, t_nu, nu)
+                iters = iters + act.to(torch.int32)
+                stop = torch.where(act, st, stop)
+                nfev = torch.where(act, t_nfev, nfev)
+                njev = njev + torch.where(act, dj, torch.zeros_like(dj))
+                nlss = nlss + torch.where(act, tries, torch.zeros_like(tries))
+                passes += 1
+                act = (stop == running) & (iters < opts.itmax)
+                more = bool(act.any())
+                count("levmar.syncs")
+        if profiling.enabled():
+            # lanes × passes, and the lanes that ran summed: one device read
+            count("levmar.lanes", b * passes)
+            count("levmar.active_lanes", int(iters.sum()))
 
     stop = torch.where(stop == running, code(StopReason.MAX_ITERATIONS, stop), stop)
     res = LMResult(

@@ -1,6 +1,7 @@
 """The port's spans and counters (brdf_tpu_torch/utils/profiling.py) on the
 CPU: off by default and then leaving nothing behind, the spans of the fit
-entries, the eager LM loop and the relight path with their parents, request
+entries, the eager LM loop, the eager LM solver (``levmar_bc``), the gain
+rounds of the joint fit and the relight path with their parents, request
 ids and counts when on, their clock against ``torch.profiler``'s, results
 bit-identical either way, and the operator's exporter (``fit --profile``).
 
@@ -17,10 +18,15 @@ from brdf_tpu_torch.geometry import Camera, TriangleMesh
 from brdf_tpu_torch.io import led_rig_positions
 from brdf_tpu_torch.ops import ne
 from brdf_tpu_torch.pipeline import scene as t_scene
-from brdf_tpu_torch.pipeline.fit import build_face_problem, fit_joint_normalmap, fit_per_texel
+from brdf_tpu_torch.pipeline.fit import (
+    build_face_problem,
+    fit_joint_normalmap,
+    fit_joint_normalmap_with_gains,
+    fit_per_texel,
+)
 from brdf_tpu_torch.pipeline.render import relight, render_image
 from brdf_tpu_torch.pipeline.scene import Scene
-from brdf_tpu_torch.solver.lm import LMOptions
+from brdf_tpu_torch.solver.lm import LMOptions, levmar_bc
 from brdf_tpu_torch.utils import profiling
 from tools.synthetic_scene import (
     CENTER,
@@ -35,7 +41,7 @@ from tools.synthetic_scene import (
 MODEL = "cook_torrance"
 NAMES = {"fit", "fit.upload", "fit.init", "fit.solve", "fit.reweight", "lm.solve", "lm.pass",
          "problem.build", "relight", "render.raster_map", "render.gather", "render.shade",
-         "render.scatter"}
+         "render.scatter", "levmar.solve", "levmar.iter", "fit.gains"}
 JOINT_OPTS = LMOptions(eps1=1e-7, eps2=1e-8, eps3=1e-14, itmax=6)
 LIGHT = np.array([[120.0, 210.0, 280.0]])
 
@@ -213,6 +219,73 @@ def test_joint_fit_spans_and_the_loop_counters(scan):
     lanes, active = (profiling.counters().get(k, 0) for k in ("lm.lanes", "lm.active_lanes"))
     assert lanes == len(passes) * len(problem.face_ids)
     assert 0 < active <= lanes
+
+
+def _levmar(lanes=8, samples=12, itmax=8):
+    """``levmar_bc`` on a batch of two-parameter exponential decays."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.linspace(0.0, 1.0, samples)
+    a = torch.rand(lanes, 2, generator=g) + 0.5
+    y = a[:, :1] * torch.exp(-a[:, 1:] * x)
+
+    def residual(p, d):
+        return p[0] * torch.exp(-p[1] * x) - d
+
+    return levmar_bc(residual, torch.ones(lanes, 2), [0.0, 0.0], [10.0, 10.0], data=y,
+                     opts=LMOptions(itmax=itmax))
+
+
+def test_levmar_records_nothing_while_off():
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _levmar()
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert not names & NAMES
+    assert profiling.records() == [] and profiling.counters() == {}
+
+
+def test_levmar_spans_and_counters():
+    off = _levmar()
+    profiling.enable()
+    res = _levmar()
+    assert all(torch.equal(a, b) for a, b in zip(off, res))
+    solve, *iters = profiling.records()
+    assert solve.name == "levmar.solve" and solve.parent is None
+    assert solve.attrs == {"lanes": 8, "m": 2, "n": 12, "jac_mode": "auto"}
+    # the lanes run in step: an outer iteration while any lane is active
+    passes = int(res.iters.max())
+    assert 0 < passes <= 8 and len(iters) == passes
+    assert all(s.name == "levmar.iter" and s.parent == solve.id for s in iters)
+    assert all(solve.start_ns <= s.start_ns <= s.end_ns <= solve.end_ns for s in iters)
+    counters = profiling.counters()
+    # one outer test an iteration and the last, and one inner test at least an iteration
+    assert counters["levmar.syncs"] >= 2 * passes + 1
+    assert counters["levmar.lanes"] == 8 * passes
+    assert counters["levmar.active_lanes"] == int(res.iters.sum())
+    assert 0 < counters["levmar.active_lanes"] <= counters["levmar.lanes"]
+
+
+def test_joint_fit_with_gains_spans(scan):
+    _, _, problem = scan
+    profiling.enable()
+    res, _, gains = fit_joint_normalmap_with_gains(problem, MODEL, rounds=2, opts=JOINT_OPTS,
+                                                   engine="xla", device="cpu")
+    spans = profiling.records()
+    by_id = _by_id()
+    assert [s.name for s in spans if s.parent is None] == ["fit", "fit.gains"] * 2 + ["fit"]
+    assert [s.attrs for s in spans if s.name == "fit.gains"] == [
+        {"round": 1, "views": VIEWS}, {"round": 2, "views": VIEWS}]
+    solves = [s for s in spans if s.name == "levmar.solve"]
+    assert len(solves) == 3 and all(by_id[s.parent].name == "fit.solve" for s in solves)
+    assert all(s.attrs["lanes"] == len(problem.face_ids) and s.attrs["m"] == 9
+               and s.attrs["n"] == 3 * VIEWS for s in solves)
+    iters = [s for s in spans if s.name == "levmar.iter"]
+    assert 0 < len(iters) <= 3 * JOINT_OPTS.itmax
+    assert all(by_id[s.parent].name == "levmar.solve" for s in iters)
+    counters = profiling.counters()
+    assert counters["levmar.syncs"] >= len(iters)
+    assert 0 < counters["levmar.active_lanes"] <= counters["levmar.lanes"]
+    assert counters["levmar.lanes"] == len(iters) * len(problem.face_ids)
+    assert gains.shape == (VIEWS,) and res.p.shape == (len(problem.face_ids), 9)
 
 
 def test_relight_spans(scan):
