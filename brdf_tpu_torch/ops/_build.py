@@ -51,7 +51,7 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 SOURCES = ("varpro", "lm", "lobes_eval", "shade", "ne", "joint_ne", "varpro_nd", "lm_step",
-           "grid_init")
+           "grid_init", "joint_levmar")
 # nvcc's output, and its wall seconds, for each source built by this process
 BUILD_LOGS: dict[str, str] = {}
 BUILD_SECONDS: dict[str, float] = {}

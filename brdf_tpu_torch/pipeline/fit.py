@@ -54,6 +54,7 @@ from brdf_tpu_torch.models.normalmap import (
     joint_residual,
     joint_spec,
 )
+from brdf_tpu_torch.ops import joint_levmar
 from brdf_tpu_torch.ops.lm import PALLAS_MODELS
 from brdf_tpu_torch.ops.ne import JOINT_OPTS, lm_fit_joint_chunked, normal_equations
 from brdf_tpu_torch.parallel.fit import (
@@ -731,6 +732,10 @@ def _joint_solve(base_model, spec: JointSpec, opts, max_tilt, engine, p0, geomet
         return lm_result(lm_fit_joint_chunked(base_model, geometry, intensity, p0, weights=weights,
                                               opts=opts, lower=tuple(spec.lower),
                                               upper=tuple(spec.upper)))
+    if joint_levmar.kernel_takes(spec, opts, p0, intensity, weights, *geometry):
+        # levmar_bc's state machine for every face in one launch of
+        # csrc/joint_levmar.cu (the m = 11 anisotropic bases on a card)
+        return joint_levmar.joint_levmar(spec, geometry, intensity, p0, weights, opts)
     return levmar_bc(joint_residual(spec), p0, spec.lower, spec.upper,
                      data=(geometry, intensity, weights), opts=opts)
 
@@ -765,8 +770,10 @@ def fit_joint_normalmap(
     "huber"/"cauchy"/"tukey" rounds, each a refit from the previous round's
     parameters, exactly as in :func:`fit_per_texel`).
 
-    ``engine``: "xla" (eager ``levmar_bc`` with a forward-mode Jacobian through
-    ``perturbed_angles``), "pallas" (``ops/ne.py::lm_fit_joint_chunked``: the
+    ``engine``: "xla" (``levmar_bc``: eager with a forward-mode Jacobian through
+    ``perturbed_angles``; for the m = 11 bases on float32 CUDA tensors its
+    whole solve in one launch of ``ops/joint_levmar.py``'s kernel), "pallas"
+    (``ops/ne.py::lm_fit_joint_chunked``: the
     m=9 normal-equation kernel K7, with the angles and their offset partials
     evaluated in the kernel; its plain version on the CPU), "varpro"
     (``solver/varpro_joint.py``), or "auto": "pallas" on a CUDA device when

@@ -22,11 +22,12 @@ added by ``axis_sum``, and the solve and damping control after them are the
 same bits on every rank.
 
 While ``utils/profiling.py`` records, a call of :func:`levmar_bc` is a
-``levmar.solve`` span (lanes, m, n, jac_mode) and each outer iteration a
-``levmar.iter`` span; the counter ``levmar.syncs`` counts every host test of
-the lanes (outer and inner), and at the call's end ``levmar.lanes`` (lanes ×
-outer iterations) and ``levmar.active_lanes`` (the iterations the lanes ran,
-one read of the device) are added.
+``levmar.solve`` span (lanes, m, n, jac_mode, path "eager"; the m = 11 joint
+fit's kernel, ``ops/joint_levmar.py``, records path "kernel") and each outer
+iteration a ``levmar.iter`` span; the counter ``levmar.syncs`` counts every
+host test of the lanes (outer and inner), and at the call's end
+``levmar.lanes`` (lanes × outer iterations) and ``levmar.active_lanes`` (the
+iterations the lanes ran, one read of the device) are added.
 """
 
 from __future__ import annotations
@@ -302,7 +303,8 @@ def levmar_bc(
         return axis_sum(x, opts.axis_name)
 
     jac_name = "jac_fn" if jac_fn is not None else jac_mode
-    with torch.no_grad(), span("levmar.solve", lanes=b, m=p0.shape[-1], jac_mode=jac_name) as sp:
+    with torch.no_grad(), span("levmar.solve", lanes=b, m=p0.shape[-1], jac_mode=jac_name,
+                               path="eager") as sp:
         p = proj(p0)
         e = res_b(p, data)
         sp.set(n=e.shape[-1])

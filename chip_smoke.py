@@ -50,7 +50,10 @@ per source, in parallel), then:
     data-dependent bound, its lane layout, warps an SM, registers, spills and
     issued-over-needed iterations, with and without the refill of texels and
     at three layouts on the same inputs; ``lm_fit_compacted`` beside
-    ``lm_fit_fused`` on timber-aniso's call; and the warm LM main path;
+    ``lm_fit_fused`` on timber-aniso's call; and the warm LM main path; then
+    the grid init kernel, and the joint LM kernel (``csrc/joint_levmar.cu``)
+    against its plain version on the timber joint cell's scan
+    (``tools/joint_levmar_agreement.py``) and timed at its shape;
 12. holds the shading kernels K2, K3 and K4 (``csrc/shade.cu``: forward,
     parameter cotangents, angle cotangents) against their plain versions on
     all ten lobes with full-range cosines: cook_torrance at 1048576 × 16,
@@ -207,7 +210,7 @@ from brdf_tpu_torch.models.brdf import (  # noqa: E402
 )
 from brdf_tpu_torch.models.normalmap import joint_eval, joint_spec, tangent_basis  # noqa: E402
 from brdf_tpu_torch.ops import _build, lm as k5, ne as k6, shading as k0, varpro as k1  # noqa: E402
-from brdf_tpu_torch.ops import grid_init as gi, varpro_nd as k8  # noqa: E402
+from brdf_tpu_torch.ops import grid_init as gi, joint_levmar as jl, varpro_nd as k8  # noqa: E402
 from brdf_tpu_torch.parallel import fit as pfit  # noqa: E402
 from brdf_tpu_torch.parallel.mesh import VIEW_AXIS, initialize_multihost, make_mesh  # noqa: E402
 from brdf_tpu_torch.pipeline import fit as pipeline_fit  # noqa: E402
@@ -2452,6 +2455,79 @@ def phase_grid_init() -> dict:
     return out
 
 
+# the joint LM kernel's floating-point operations a (view, channel) in a
+# Jacobian pass and in a residual pass, and a try's damped 11 × 11 Cholesky
+# solve, step and predicted reduction: an estimate from csrc/joint_levmar.cu's
+# source that counts every add, multiply, divide, root and transcendental once
+# and the lobe's terms that do not depend on kd and ks once a view (the three
+# channels share them), so that the bound stays a floor
+JL_OPS_JACOBIAN, JL_OPS_RESIDUAL, JL_OPS_SOLVE = 250, 50, 1500
+JL_SEED = 2400000002
+
+
+def joint_levmar_operations(res, v: int) -> float:
+    """The joint LM kernel's operations for the solve ``res`` found: a
+    Jacobian pass an outer iteration and a residual pass and a solve a try,
+    at every face's own counts."""
+    iters = float(res.iters.sum())
+    tries = float(res.nlss.sum())
+    return (iters * v * 3 * JL_OPS_JACOBIAN + tries * (v * 3 * JL_OPS_RESIDUAL + JL_OPS_SOLVE))
+
+
+def phase_joint_levmar() -> dict:
+    """The joint LM kernel (csrc/joint_levmar.cu) held to its plain version
+    under tools/joint_levmar_agreement.py's bars on the timber joint cell's
+    scan (the first solve at 16 views and at 13, and the whole gain
+    alternation with the kernel beside each of the plain path's solves),
+    then timed alone between CUDA events at the cell's shape beside its
+    bound, its occupancy and the plain version's time (one solve on the host
+    clock)."""
+    from gpubench import program
+    from tools import joint_levmar_agreement as jla
+
+    saved = jl.LAUNCHES
+    problem, config = jla.cell_problem(JL_SEED, DEVICE)
+    agreement = jla.run(problem, config, DEVICE)
+    for key, row in agreement.items():
+        log(f"joint LM kernel agreement {key}: {row}")
+    spec, geom, y, p0, w = jla.solve_inputs(problem, config["model"], config["max_tilt"], DEVICE)
+    opts = program.lm_options(config)
+    lv, yy, ww, frame = k6._joint_prep(geom, y, w)
+    p_rows = p0.T.contiguous()
+    t, v = y.shape[:2]
+
+    counters = torch.zeros(2, dtype=torch.int32, device=DEVICE)
+
+    def solve():
+        return jl.joint_levmar_cuda(spec.base_model, lv, yy, ww, frame, p_rows, spec.lower,
+                                    spec.upper, opts, counters)
+
+    res = solve()
+    # the trips the warps ran, a group's each (32 / S groups a warp), against
+    # the tries the faces needed (a try a trip)
+    lanes = jl.lane_layout(v)
+    issued = int(counters[1]) * 32 // lanes
+    kernel_ms = cuda_ms(solve, 3)
+    plain_ms = agreement[f"v{v}"]["plain_s"] * 1e3     # one solve, host clock to a sync
+    # every input read once (views 12 floats, the frame 9, the start 11), every output written once
+    nbytes = 4.0 * t * (v * 12 + 9 + 11) + 4.0 * t * (11 + 10)
+    bound = bound_of(nbytes, joint_levmar_operations(res, v))
+    out = dict(agreement=agreement, model=spec.base_model, faces=t, views=v, channels=3,
+               kernel_ms=kernel_ms, plain_ms=plain_ms, speedup=plain_ms / kernel_ms, **bound,
+               roofline_share=bound["bound_ms"] / kernel_ms,
+               iters_mean=float(res.iters.double().mean()), iters_max=int(res.iters.max()),
+               tries_mean=float(res.nlss.double().mean()), group_trips=issued,
+               needed_share=float(res.nlss.double().sum()) / issued,
+               occupancy=jl.occupancy(spec.base_model, v),
+               ptxas=_build.ptxas_report(_build.BUILD_LOGS.get("joint_levmar", "")))
+    jl.LAUNCHES = saved                           # timing launches are not a main path's
+    log(f"joint LM kernel: { {k: x for k, x in out.items() if k != 'agreement'} }")
+    check(all(row["held"] for row in agreement.values()),
+          f"joint LM kernel against its plain version: {agreement}")
+    check(out["roofline_share"] <= 1.05, "joint LM kernel: above its bound")
+    return out
+
+
 # the eager LM loop's step kernels (csrc/lm_step.cu): one lobe of each K6
 # parameter count for the chunked tier, and the lane counts they are timed at
 # (the joint benchmark cell's 8203 faces, the joint main path's T_JOINT)
@@ -3927,6 +4003,8 @@ def main() -> int:
     del lm_problems, gates_row
     grid_init_timing = phase_grid_init()
     lap("grid init kernel timing")
+    joint_levmar_numbers = phase_joint_levmar()
+    lap("joint LM kernel")
 
     # K2-K4, the serve path and the closed loop, with a raster-map cache of
     # this run's own that goes when the run ends
@@ -4009,7 +4087,7 @@ def main() -> int:
             "lm_general_row": dict(lm_timing["lm-general-row"], **lm_gates),
             "main_path_calls": {k: v for k, v in lm_timing.items() if k != "lm-general-row"},
             "main_path": lm_main_path, "main_path_warm": lm_breakdown, "chunked": chunked,
-            "grid_init": grid_init_timing,
+            "grid_init": grid_init_timing, "joint_levmar": joint_levmar_numbers,
             "ptxas": {k: v for k, v in ptxas_numbers().items()
                       if k not in ("varpro", "shade", "ne", "joint_ne", "varpro_nd", "lm_step")},
         },

@@ -3,14 +3,19 @@ every CUDA wrapper holds its operands to ``check_operands`` before it
 launches, so a CPU tensor, another dtype, a strided operand and operands on
 two devices are each refused with the kernel's name; ``launch`` and
 ``query`` turn a ``cudaError`` into ``RuntimeError``; ``on_cuda`` picks the
-kernel or its plain version. Nothing here needs a card: where a check must
+kernel or its plain version; every ``Entry`` types each parameter of its C
+function, the stream included (an argument past ``argtypes`` would go as a
+C int, and a pointer's upper half would be whatever the stack held). Nothing here needs a card: where a check must
 get past "is this a CUDA tensor", the test makes every tensor say so."""
+
+import re
+from pathlib import Path
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from brdf_tpu_torch.ops import _build, grid_init, lm as k5, ne, shading  # noqa: E402
+from brdf_tpu_torch.ops import _build, grid_init, joint_levmar, lm as k5, ne, shading  # noqa: E402
 from brdf_tpu_torch.ops import varpro as k1, varpro_nd as k8  # noqa: E402
 from brdf_tpu_torch.solver.init import default_shape_grid  # noqa: E402
 from brdf_tpu_torch.solver.lm import LMOptions  # noqa: E402
@@ -19,7 +24,7 @@ T, V = 5, 4
 OPTS = LMOptions(eps1=1e-6, eps2=1e-7, eps3=1e-12, itmax=10)
 # every CUDA wrapper, by the kernel name its messages give
 WRAPPERS = ("K1", "K8", "K5", "K6", "K7", "lm_step_propose", "lm_step_accept",
-            "the lobe kernel", "K2", "K3", "K4", "the grid init kernel")
+            "the lobe kernel", "K2", "K3", "K4", "the grid init kernel", "the joint LM kernel")
 
 
 def _wrapper(kernel: str):
@@ -57,6 +62,10 @@ def _wrapper(kernel: str):
     if kernel in ("K3", "K4"):
         fn = shading.shade_bwd_params_cuda if kernel == "K3" else shading.shade_bwd_angles_cuda
         return lambda a: fn("ward", *a), [z(3, V, T), z(3, T), z(V, T)]
+    if kernel == "the joint LM kernel":
+        lo, hi = (0.0,) * 11, (1.0,) * 11
+        return (lambda a: joint_levmar.joint_levmar_cuda("ward_aniso", *a, lo, hi, OPTS),
+                [z(6, V, T), z(3, V, T), z(3, V, T), z(9, T), z(11, T)])
     grid = default_shape_grid("blinn_phong")
     return (lambda a: grid_init.grid_init_cuda("blinn_phong", *a, grid),
             [z(2, T, V), z(T, V), z(T, V)])
@@ -74,7 +83,7 @@ def _strided(x: torch.Tensor) -> torch.Tensor:
 def test_every_wrapper_refuses_what_no_kernel_takes(monkeypatch, kernel, fault):
     call, operands = _wrapper(kernel)
     counts = (k1.LAUNCHES, k8.LAUNCHES, k5.LAUNCHES, dict(ne.LAUNCHES), shading.LAUNCHES,
-              dict(shading.SHADE_LAUNCHES), grid_init.LAUNCHES)
+              dict(shading.SHADE_LAUNCHES), grid_init.LAUNCHES, joint_levmar.LAUNCHES)
     if fault != "cpu":
         # every tensor says it is a CUDA tensor, so the check reaches its next test
         monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True), raising=False)
@@ -92,7 +101,7 @@ def test_every_wrapper_refuses_what_no_kernel_takes(monkeypatch, kernel, fault):
     with pytest.raises(ValueError, match=match):
         call(operands)
     assert counts == (k1.LAUNCHES, k8.LAUNCHES, k5.LAUNCHES, dict(ne.LAUNCHES), shading.LAUNCHES,
-                      dict(shading.SHADE_LAUNCHES), grid_init.LAUNCHES)
+                      dict(shading.SHADE_LAUNCHES), grid_init.LAUNCHES, joint_levmar.LAUNCHES)
 
 
 class _Fake:
@@ -159,3 +168,44 @@ def test_on_cuda_picks_the_plain_version_on_the_cpu_and_refuses_other_devices():
     rows = ne.ne_rows("lambert", "chi2", torch.zeros(1, 4, 2), torch.zeros(4, 2), None,
                       torch.zeros(1, 2))
     assert rows.shape == (1, 2) and ne.LAUNCHES["ne"] == 0
+
+
+CSRC = Path(_build.__file__).resolve().parents[1] / "csrc"
+_C_ENTRY = re.compile(r'extern "C" int (brdf_\w+)\(([^)]*)\)')
+# a C parameter's type → its ctypes argument type
+_KINDS = {"int": _build.I, "float": _build.F}
+
+
+def _c_functions() -> dict:
+    """``(source, symbol) → argtypes`` read from the C entries of csrc/*.cu:
+    a pointer is P, an int I and a float F."""
+    out = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        for symbol, params in _C_ENTRY.findall(src.read_text()):
+            kinds = []
+            for prm in params.split(","):
+                prm = " ".join(prm.split())
+                kinds.append(_build.P if "*" in prm else _KINDS[prm.split(" ")[-2]])
+            out[(src.stem, symbol)] = tuple(kinds)
+    return out
+
+
+def _entries() -> dict:
+    """Every ``_build.Entry`` the ops modules declare, by symbol."""
+    found = {}
+    for mod in (k1, k8, k5, ne, shading, grid_init, joint_levmar):
+        for value in vars(mod).values():
+            for e in value.values() if isinstance(value, dict) else (value,):
+                if isinstance(e, _build.Entry):
+                    found[e.symbol] = e
+    return found
+
+
+@pytest.mark.parametrize("symbol", sorted(_entries()))
+def test_every_entry_types_each_argument_of_its_c_function(symbol):
+    entry = _entries()[symbol]
+    assert _c_functions()[(entry.source, symbol)] == entry.argtypes
+
+
+def test_every_c_entry_is_declared_once():
+    assert sorted(s for _, s in _c_functions()) == sorted(_entries())

@@ -250,7 +250,7 @@ def test_levmar_spans_and_counters():
     assert all(torch.equal(a, b) for a, b in zip(off, res))
     solve, *iters = profiling.records()
     assert solve.name == "levmar.solve" and solve.parent is None
-    assert solve.attrs == {"lanes": 8, "m": 2, "n": 12, "jac_mode": "auto"}
+    assert solve.attrs == {"lanes": 8, "m": 2, "n": 12, "jac_mode": "auto", "path": "eager"}
     # the lanes run in step: an outer iteration while any lane is active
     passes = int(res.iters.max())
     assert 0 < passes <= 8 and len(iters) == passes
@@ -277,7 +277,7 @@ def test_joint_fit_with_gains_spans(scan):
     solves = [s for s in spans if s.name == "levmar.solve"]
     assert len(solves) == 3 and all(by_id[s.parent].name == "fit.solve" for s in solves)
     assert all(s.attrs["lanes"] == len(problem.face_ids) and s.attrs["m"] == 9
-               and s.attrs["n"] == 3 * VIEWS for s in solves)
+               and s.attrs["n"] == 3 * VIEWS and s.attrs["path"] == "eager" for s in solves)
     iters = [s for s in spans if s.name == "levmar.iter"]
     assert 0 < len(iters) <= 3 * JOINT_OPTS.itmax
     assert all(by_id[s.parent].name == "levmar.solve" for s in iters)
